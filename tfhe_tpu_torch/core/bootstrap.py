@@ -1,0 +1,234 @@
+"""Batched gate bootstrapping: blind rotate -> sample extract -> key switch.
+
+Port of ``tfhe_tpu.core.bootstrap`` (the reference's
+`tfhe_bootstrap_FFT`, lwe-bootstrapping-functions-fft.cu:1884, and the fused
+GPU pipeline `boot-gates.cu:2120-2629`). The pieces below are plain torch
+with exact integer math; they are the CPU path and the plain versions of the
+kernels. The blind rotate runs through the ``ops.cmux`` wrappers, which
+launch the CUDA kernels for CUDA tensors and take these plain pieces for CPU
+tensors. Two routes, the same bits:
+
+- fused (default on CUDA): ``ops.cmux.blind_rotate_ks_fused`` does the
+  blind rotate, sample extract and key switch;
+- split (default on the CPU): ``ops.cmux.blind_rotate_fused``, then
+  ``sample_extract`` and the one-hot int8 matmul ``key_switch``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..params import TfheParams
+from .. import ntt
+from ..config import fuseks_enabled
+from ..numeric import i32, mod_switch_from_torus32
+from ..ops import cmux
+from .lwe import LweCiphertext
+
+
+# ------------------------------------------------------------------ pieces
+
+def negacyclic_rotate(x: torch.Tensor, amount: torch.Tensor) -> torch.Tensor:
+    """X^amount * x in Z[X]/(X^N+1), batched.
+
+    x: int32[B, C, N]; amount: int[B] in [0, 2N). Matches
+    torusPolynomialMulByXai (ref toruspolynomial-functions.cu:492-520)."""
+    N = x.shape[-1]
+    i = torch.arange(N, device=x.device)
+    d = (i[None, :] - amount.to(torch.int64)[:, None]) % (2 * N)    # [B, N] in [0, 2N)
+    neg = d >= N
+    idx = d - N * neg.to(torch.int64)
+    take = torch.gather(x, -1, idx[:, None, :].expand(x.shape))
+    return torch.where(neg[:, None, :], -take, take)
+
+
+def gadget_decompose(x: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """Signed gadget decomposition with the offset trick.
+
+    x: int32[B, k+1, N] -> int32[B, kpl, N], row order c*l + p
+    (ref tGswTorus32PolynomialDecompH, tgsw-functions.cu:296-340)."""
+    l, Bgbit = params.bk_l, params.bk_Bgbit
+    u = x + i32(params.decomp_offset)                        # wraps mod 2^32
+    digs = [((u >> (32 - (p + 1) * Bgbit)) & params.maskMod) - params.halfBg
+            for p in range(l)]
+    dec = torch.stack(digs, dim=2)                           # [B, k+1, l, N]
+    return dec.reshape(x.shape[0], params.kpl, params.N)
+
+
+def extern_product_ntt(dec: torch.Tensor, bk_j: torch.Tensor, bk_sh_j: torch.Tensor,
+                       params: TfheParams) -> torch.Tensor:
+    """Sum_row dec_row (x) bk_row -> TLWE delta, exact via the CRT NTT.
+
+    dec: int32[B, kpl, N]; bk_j: uint32[P, kpl, k+1, N] (NTT domain).
+    Returns int32[B, k+1, N] (ref tGswFFTExternMulToTLwe,
+    tgsw-fft-operations.cu:124-265). The plain version reduces with ``%``,
+    so the Shoup twin `bk_sh_j`, which the kernels use, is not read here."""
+    N = params.N
+    dec_t = dec.permute(1, 2, 0).to(torch.int64)             # [kpl, N, B]
+    w_all = bk_j.view(torch.int32).to(torch.int64)           # values < p < 2^31
+    residues = []
+    for pi, p in enumerate(ntt.PRIMES):
+        dhat = ntt.ntt_forward_rows(dec_t % p, N, p)         # [kpl, N, B]
+        w = w_all[pi][..., None]                             # [kpl, k+1, N, 1]
+        prod = (dhat[:, None] * w % p).sum(0) % p            # [k+1, N, B]
+        residues.append(ntt.ntt_inverse_rows(prod, N, p))
+    return ntt.crt_to_i32(residues[0], residues[1]).permute(2, 0, 1)
+
+
+def blind_rotate(acc: torch.Tensor, bara: torch.Tensor, bk_ntt: torch.Tensor,
+                 bk_shoup: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """CMux chain over the n LWE key bits (ref tfhe_blindRotate).
+
+    acc: int32[B, k+1, N]; bara: int32[B, n]; bk_ntt: uint32[n, P, kpl, k+1, N]."""
+    for j in range(bara.shape[1]):
+        rot = negacyclic_rotate(acc, bara[:, j])
+        dec = gadget_decompose(rot - acc, params)
+        # bara == 0 is a no-op: decompose(0) == 0 exactly (offset trick)
+        acc = acc + extern_product_ntt(dec, bk_ntt[j], bk_shoup[j], params)
+    return acc
+
+
+def sample_extract(acc: torch.Tensor, params: TfheParams):
+    """Extract the constant coefficient as an LWE sample over the extracted key
+    (ref tLweExtractLweSampleIndex, lwe.cu:40-56, index=0).
+
+    acc: int32[B, k+1, N] -> (a_ext int32[B, k*N], b_ext int32[B])."""
+    k, N = params.k, params.N
+    B = acc.shape[0]
+    head = acc[:, :k, :1]
+    tail = -torch.flip(acc[:, :k, 1:], dims=(-1,))
+    a_ext = torch.cat([head, tail], dim=-1).reshape(B, k * N)
+    return a_ext, acc[:, k, 0]
+
+
+def ks_onehot(a_ext: torch.Tensor, params: TfheParams, with_nnz: bool = False):
+    """Digit-decompose a_ext columns into the one-hot KS matmul operand.
+
+    a_ext: int32[B, C] -> int8[B, C * t * (base-1)], row order (i, j, h-1)
+    matching ks_to_limb_table (ref lwe-keyswitch-functions.cu:106-118).
+    with_nnz=True also returns the per-sample count of nonzero digits
+    (int32[B]), for the reference's per-digit cv (:119-125)."""
+    t, basebit, base = params.ks_t, params.ks_basebit, params.ks_base
+    B = a_ext.shape[0]
+    aibar = a_ext + i32(params.ks_prec_offset)
+    digs = torch.stack([(aibar >> (32 - (j + 1) * basebit)) & (base - 1)
+                        for j in range(t)], dim=-1)                       # [B, C, t]
+    hvals = torch.arange(1, base, dtype=digs.dtype, device=digs.device)
+    onehot = (digs[..., None] == hvals).to(torch.int8).reshape(B, -1)
+    if with_nnz:
+        return onehot, (digs != 0).sum(dim=(1, 2), dtype=torch.int32)
+    return onehot
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8[M, K] x int8[K, N] -> int32[M, N] (torch._int_mm).
+
+    M is zero-padded to a multiple of 8 that is at least 32, which the CUDA
+    product requires (M > 16); K and N are multiples of 8 in every table."""
+    M = a.shape[0]
+    Mp = max(32, -(-M // 8) * 8)
+    if Mp != M:
+        a = torch.cat([a, a.new_zeros((Mp - M, a.shape[1]))])
+    return torch._int_mm(a.contiguous(), b.contiguous())[:M]
+
+
+def ks_recombine(sums: torch.Tensor) -> torch.Tensor:
+    """int32[B, 4*C] limb-plane sums -> int32[B, C], l0 + l1<<8 + l2<<16 + l3<<24
+    with int32 wrap."""
+    s = sums.reshape(sums.shape[0], 4, sums.shape[1] // 4)
+    return s[:, 0] + (s[:, 1] << 8) + (s[:, 2] << 16) + (s[:, 3] << 24)
+
+
+def ks_finalize(sums: torch.Tensor, b_ext: torch.Tensor, cv: torch.Tensor,
+                params: TfheParams, nnz: torch.Tensor) -> LweCiphertext:
+    """Recombine int8 limb-plane partial sums into the key-switched sample.
+
+    nnz: int32[B] count of nonzero digits; the reference adds one ks-sample
+    variance per nonzero digit (lwe-keyswitch-functions.cu:119-125)."""
+    n = params.n
+    r = ks_recombine(sums)
+    cv_out = cv + nnz.to(torch.float32) * params.ks_stdev ** 2
+    return LweCiphertext(-r[:, :n], b_ext - r[:, n], cv_out)
+
+
+def key_switch(a_ext: torch.Tensor, b_ext: torch.Tensor, ks_table: torch.Tensor,
+               cv: torch.Tensor, params: TfheParams) -> LweCiphertext:
+    """Key switch as one one-hot int8 matmul against the limb table:
+    result = (0, b_ext) - sum_{i,j} ks[i][j][digit_ij]
+    (ref lweKeySwitchTranslate_fromArray, lwe-keyswitch-functions.cu:101-127)."""
+    onehot, nnz = ks_onehot(a_ext, params, with_nnz=True)
+    return ks_finalize(int8_matmul(onehot, ks_table), b_ext, cv, params, nnz=nnz)
+
+
+# ------------------------------------------------------------------ pipeline
+
+def _prepare_acc(x: LweCiphertext, mu, cloud):
+    """Mod switch and the rotated test-vector accumulator (shared by both routes).
+
+    Returns acc int32[B, k+1, N] and bara int32[B, n] in [0, 2N)."""
+    params: TfheParams = cloud.params
+    N, k = params.N, params.k
+    B = x.b.shape[0]
+    Nx2 = 2 * N
+    barb = mod_switch_from_torus32(x.b, Nx2)                 # [B]
+    bara = mod_switch_from_torus32(x.a, Nx2)                 # [B, n]
+    # testvector = X^{2N-barb} * [mu, mu, ..., mu]
+    # a Python mu is filled on the device: no host-to-device copy, which
+    # would make the host wait for the work queued before it
+    if isinstance(mu, torch.Tensor):
+        mu_arr = mu.to(device=x.device, dtype=torch.int32).expand(B)
+    else:
+        mu_arr = torch.full((B,), int(mu), dtype=torch.int32, device=x.device)
+    tv = mu_arr[:, None, None].expand(B, 1, N)
+    amt = torch.where(barb == 0, torch.zeros_like(barb), Nx2 - barb)
+    tvb = negacyclic_rotate(tv, amt)[:, 0]
+    acc = torch.cat([torch.zeros((B, k, N), dtype=torch.int32, device=x.device),
+                     tvb[:, None, :]], dim=1)
+    return acc, bara
+
+
+def _bootstrap_variance(params: TfheParams) -> float:
+    """Post-blind-rotate variance estimate (standard TFHE noise formula)."""
+    l, Bg, N, k, n = params.bk_l, params.Bg, params.N, params.k, params.n
+    eps2 = (2.0 ** (-2 * l * params.bk_Bgbit)) / 4.0
+    var_bk = params.bk_stdev ** 2
+    return float(n * ((k + 1) * l * N * (Bg / 2.0) ** 2 * var_bk + (1 + k * N) * eps2))
+
+
+def bootstrap_woks(x: LweCiphertext, mu, cloud):
+    """Bootstrap without key switch: returns the extracted (a_ext, b_ext, cv)
+    (ref tfhe_bootstrap_woKS_FFT, lwe-bootstrapping-functions-fft.cu:1834-1880).
+
+    x: flat batch [B]. mu: int32 scalar or [B], the output message amplitude."""
+    params: TfheParams = cloud.params
+    acc, bara = _prepare_acc(x, mu, cloud)
+    acc_t = cmux.blind_rotate_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
+                                    cloud.bk_rows_shoup, params)
+    a_ext, b_ext = sample_extract(acc_t.permute(2, 0, 1), params)
+    cv = torch.full((x.b.shape[0],), _bootstrap_variance(params), dtype=torch.float32,
+                    device=x.device)
+    return a_ext, b_ext, cv
+
+
+def finish_fused_ks(r: torch.Tensor, ext: torch.Tensor, params: TfheParams) -> LweCiphertext:
+    """The sample from the fused kernel's outputs: r int32[B, C] (recombined
+    key-switch sums) and ext int32[2, B] (b_ext, count of nonzero digits)."""
+    n = params.n
+    cv = ext[1].to(torch.float32) * params.ks_stdev ** 2 + _bootstrap_variance(params)
+    return LweCiphertext(-r[:, :n], ext[0] - r[:, n], cv)
+
+
+def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud) -> LweCiphertext:
+    """bootstrap() through ops.cmux.blind_rotate_ks_fused."""
+    params: TfheParams = cloud.params
+    acc, bara = _prepare_acc(x, mu, cloud)
+    r, ext = cmux.blind_rotate_ks_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
+                                        cloud.bk_rows_shoup, cloud.ks_table_perm, params)
+    return finish_fused_ks(r, ext, params)
+
+
+def bootstrap(x: LweCiphertext, mu, cloud) -> LweCiphertext:
+    """Full gate bootstrap (ref tfhe_bootstrap_FFT, lwe-bootstrapping-functions-fft.cu:1884)."""
+    if fuseks_enabled(x.device) and cloud.params.k == 1:
+        return _bootstrap_fused_ks(x, mu, cloud)
+    a_ext, b_ext, cv = bootstrap_woks(x, mu, cloud)
+    return key_switch(a_ext, b_ext, cloud.ks_table, cv, cloud.params)

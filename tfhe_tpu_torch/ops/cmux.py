@@ -1,0 +1,271 @@
+"""CMux kernels of the blind rotate: wrappers, plain versions and tables.
+
+Counterpart of ``tfhe_tpu.ops.cmux_pallas``. Each wrapper keeps the JAX
+kernel's array layouts at its interface, and dispatches on the device of its
+tensors: a CPU tensor takes the plain-torch version (``*_ref``, built from
+``core.bootstrap``'s pieces); a CUDA tensor launches the hand-written kernel
+of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]``.
+
+| wrapper                | TPU kernel it replaces                          |
+|------------------------|-------------------------------------------------|
+| cmux_delta             | cmux_pallas.cmux_delta (one external product)   |
+| blind_rotate_step      | cmux_pallas.blind_rotate_step (one CMux step)   |
+| blind_rotate_fused     | cmux_pallas.blind_rotate_fused (all n steps)    |
+| blind_rotate_ks_fused  | cmux_pallas.blind_rotate_ks_fused (+ extract    |
+|                        | and key switch)                                 |
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import ntt
+from ..params import TfheParams
+from ..core import bootstrap as bs
+from ._build import check, library
+
+LAUNCHES = {"cmux_delta": 0, "blind_rotate_step": 0, "blind_rotate_fused": 0,
+            "blind_rotate_ks_fused": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------------ tables
+
+@functools.lru_cache(maxsize=None)
+def _twiddle_stack(N: int, half_bg: int) -> np.ndarray:
+    """uint32[P, N, 5] twiddle columns: psi_br, psi_br_shoup, ipsi_br,
+    ipsi_br_shoup and NTT_p(half_bg * ones(N)), the offset-digit correction
+    (digits stay in [0, Bg) inside the kernels; subtracting this fixed
+    transform restores the signed decomposition exactly).
+
+    These are the first five columns of ``cmux_pallas._twiddle_stack``; its
+    further columns serve the TPU's roll-select butterflies only."""
+    cols_per_prime = []
+    for p in ntt.PRIMES:
+        tabs = ntt.ntt_tables(N, p)
+        ones_hat = ntt.ntt_forward_np(np.full(N, half_bg % p, np.uint64), N, p)
+        cols_per_prime.append(np.stack(
+            [tabs["psi_br"], tabs["psi_br_shoup"], tabs["ipsi_br"],
+             tabs["ipsi_br_shoup"], ones_hat], axis=1))
+    return np.stack(cols_per_prime)
+
+
+def _kernel_constants(N: int) -> np.ndarray:
+    """The 16 uint32 constants after the twiddles (csrc/extern_product.cuh)."""
+    vals = []
+    for p in ntt.PRIMES:
+        t = ntt.ntt_tables(N, p)
+        vals += [p, int(t["n_inv"]), int(t["n_inv_shoup"]), int(t["ipsi1_ninv"]),
+                 int(t["ipsi1_ninv_shoup"])]
+    vals += [ntt._INV_P1_MOD_P2, ntt._INV_P1_SHOUP, ntt._T_HALF, ntt._R1_HALF,
+             ntt._M_MOD_2_32, 0]
+    return np.array(vals, np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(N: int, half_bg: int, device: str) -> torch.Tensor:
+    """uint32[P][5][N] twiddles followed by the constants, on `device`."""
+    tw = np.ascontiguousarray(_twiddle_stack(N, half_bg).transpose(0, 2, 1))
+    buf = np.concatenate([tw.reshape(-1), _kernel_constants(N)])
+    return torch.from_numpy(buf).to(device)
+
+
+# ------------------------------------------------------------------ checks
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie on
+    the CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors must all lie on the CPU or on one CUDA device, "
+                     f"got {[str(t.device) for t in tensors]}")
+
+
+def _expect(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype}{list(shape)}, got {t.dtype}{list(t.shape)}")
+
+
+def _check_bk(bk: torch.Tensor, bksh: torch.Tensor, lead: tuple, params: TfheParams) -> None:
+    shape = lead + (len(ntt.PRIMES), params.N, params.kpl * (params.k + 1))
+    for t, name in ((bk, "bk"), (bksh, "bk_shoup")):
+        _expect(t, torch.uint32, shape, name)
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_params(params: TfheParams) -> None:
+    if params.k != 1 or params.bk_l != 2 or not 64 <= params.N <= 2048:
+        raise ValueError("the CUDA kernels take k = 1, l = 2 and 64 <= N <= 2048")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _acc_rows(acc_t: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """acc_t int32[k+1, N, B] -> a fresh contiguous int32[B, k+1, N] the
+    kernels update in place."""
+    _expect(acc_t, torch.int32, (params.k + 1, params.N, acc_t.shape[-1]), "acc_t")
+    return acc_t.permute(2, 0, 1).clone(memory_format=torch.contiguous_format)
+
+
+def _bk_ntt_view(bk_rows: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """[..., P, N, kpl*(k+1)] -> view [..., P, kpl, k+1, N] (the bk_ntt layout)."""
+    return bk_rows.unflatten(-1, (params.kpl, params.k + 1)).movedim(-3, -1)
+
+
+def _launch_rotate(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
+                   bksh: torch.Tensor, params: TfheParams) -> None:
+    B, n = bara.shape
+    tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
+    check(library().tfhe_blind_rotate(
+        acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), bksh.data_ptr(), tab.data_ptr(),
+        B, n, params.N, params.bk_Bgbit, params.decomp_offset, _stream(acc)))
+
+
+# ------------------------------------------------------------------ K1
+
+def cmux_delta_ref(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
+                   params: TfheParams) -> torch.Tensor:
+    """Plain version of cmux_delta."""
+    out = bs.extern_product_ntt(dec_t.permute(2, 0, 1), _bk_ntt_view(bk_j, params),
+                                _bk_ntt_view(bksh_j, params), params)
+    return out.permute(1, 2, 0)
+
+
+def cmux_delta(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
+               params: TfheParams) -> torch.Tensor:
+    """One external product. dec_t: int32[kpl, N, B] signed digits in
+    [-Bg/2, Bg/2); bk_j/bksh_j: uint32[P, N, kpl*(k+1)] (one step of bk_rows).
+    Returns delta int32[k+1, N, B]."""
+    if not _on_cuda(dec_t, bk_j, bksh_j):
+        return cmux_delta_ref(dec_t, bk_j, bksh_j, params)
+    _check_params(params)
+    B = dec_t.shape[-1]
+    _expect(dec_t, torch.int32, (params.kpl, params.N, B), "dec_t")
+    _check_bk(bk_j, bksh_j, (), params)
+    dec = dec_t.permute(2, 0, 1).contiguous()
+    out = torch.empty((B, params.k + 1, params.N), dtype=torch.int32, device=dec.device)
+    tab = _kernel_tables(params.N, params.halfBg, str(dec.device))
+    check(library().tfhe_cmux_delta(
+        dec.data_ptr(), bk_j.data_ptr(), bksh_j.data_ptr(), tab.data_ptr(), out.data_ptr(),
+        B, params.N, params.halfBg, _stream(dec)))
+    LAUNCHES["cmux_delta"] += 1
+    return out.permute(1, 2, 0)
+
+
+# ------------------------------------------------------------------ K2
+
+def blind_rotate_step_ref(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch.Tensor,
+                          bksh_j: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """Plain version of blind_rotate_step."""
+    out = bs.blind_rotate(acc_t.permute(2, 0, 1), bara_j.T, _bk_ntt_view(bk_j, params)[None],
+                          _bk_ntt_view(bksh_j, params)[None], params)
+    return out.permute(1, 2, 0)
+
+
+def blind_rotate_step(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch.Tensor,
+                      bksh_j: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """One CMux step. acc_t: int32[k+1, N, B]; bara_j: int32[1, B] in [0, 2N);
+    bk_j/bksh_j: uint32[P, N, kpl*(k+1)]. Returns the new accumulator. On CUDA
+    it is the blind-rotate kernel with n = 1."""
+    if not _on_cuda(acc_t, bara_j, bk_j, bksh_j):
+        return blind_rotate_step_ref(acc_t, bara_j, bk_j, bksh_j, params)
+    _check_params(params)
+    acc = _acc_rows(acc_t, params)
+    _expect(bara_j, torch.int32, (1, acc.shape[0]), "bara_j")
+    _check_bk(bk_j, bksh_j, (), params)
+    _launch_rotate(acc, bara_j.T.contiguous(), bk_j, bksh_j, params)
+    LAUNCHES["blind_rotate_step"] += 1
+    return acc.permute(1, 2, 0)
+
+
+# ------------------------------------------------------------------ K3
+
+def blind_rotate_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
+                           bksh_rows: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """Plain version of blind_rotate_fused."""
+    out = bs.blind_rotate(acc_t.permute(2, 0, 1), bara.T, _bk_ntt_view(bk_rows, params),
+                          _bk_ntt_view(bksh_rows, params), params)
+    return out.permute(1, 2, 0)
+
+
+def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
+                       bksh_rows: torch.Tensor, params: TfheParams) -> torch.Tensor:
+    """The whole blind rotate (all n CMux steps) in one launch.
+
+    acc_t: int32[k+1, N, B]; bara: int32[n, B]; bk_rows/bksh_rows:
+    uint32[n, P, N, kpl*(k+1)]. Returns the accumulator int32[k+1, N, B]."""
+    if not _on_cuda(acc_t, bara, bk_rows, bksh_rows):
+        return blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)
+    _check_params(params)
+    acc = _acc_rows(acc_t, params)
+    n = bara.shape[0]
+    _expect(bara, torch.int32, (n, acc.shape[0]), "bara")
+    _check_bk(bk_rows, bksh_rows, (n,), params)
+    _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params)
+    LAUNCHES["blind_rotate_fused"] += 1
+    return acc.permute(1, 2, 0)
+
+
+# ------------------------------------------------------------------ K4
+
+def blind_rotate_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
+                              bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
+                              params: TfheParams):
+    """Plain version of blind_rotate_ks_fused: blind rotate, native-order
+    extract, one-hot digit matrix, limb-table product, recombine."""
+    acc = blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)   # [2, N, B]
+    a0 = acc[0].T                                                           # [B, N]
+    x = torch.cat([a0[:, :1], -a0[:, 1:]], dim=1)
+    TB, N, C4 = tks_lane.shape
+    onehot, nnz = bs.ks_onehot(x, params, with_nnz=True)     # rows (m, j, h-1)
+    onehot = onehot.reshape(x.shape[0], N, TB).transpose(1, 2).reshape(x.shape[0], TB * N)
+    r = bs.ks_recombine(bs.int8_matmul(onehot, tks_lane.reshape(TB * N, C4)))
+    return r, torch.stack([acc[1, 0, :], nnz])
+
+
+def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
+                          bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
+                          params: TfheParams):
+    """Blind rotate, sample extract and key switch.
+
+    acc_t: int32[k+1, N, B]; bara: int32[n, B]; tks_lane: the permuted KS limb
+    table int8[t*(base-1), N, 4*C] (CloudKey.ks_table_perm). Returns
+    (r int32[B, C], ext int32[2, B]); the caller finishes with
+    a = -r[:, :n], b = ext[0] - r[:, n], cv from ext[1] (the count of nonzero
+    digits). On CUDA: the blind-rotate kernel, then the key-switch kernel."""
+    if not _on_cuda(acc_t, bara, bk_rows, bksh_rows, tks_lane):
+        return blind_rotate_ks_fused_ref(acc_t, bara, bk_rows, bksh_rows, tks_lane, params)
+    _check_params(params)
+    acc = _acc_rows(acc_t, params)
+    B = acc.shape[0]
+    n = bara.shape[0]
+    _expect(bara, torch.int32, (n, B), "bara")
+    _check_bk(bk_rows, bksh_rows, (n,), params)
+    TB, C4 = params.ks_t * (params.ks_base - 1), tks_lane.shape[-1]
+    _expect(tks_lane, torch.int8, (TB, params.N, C4), "tks_lane")
+    if C4 % 512 or C4 // 16 > 1024 or not tks_lane.is_contiguous():
+        raise ValueError("tks_lane: want contiguous, 4*C with C a multiple of 128")
+    C = C4 // 4
+    bara_b = bara.T.contiguous()
+    r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
+    ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+    tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
+    check(library().tfhe_blind_rotate_ks(
+        acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
+        tab.data_ptr(), tks_lane.data_ptr(), r.data_ptr(), ext.data_ptr(),
+        B, n, params.N, params.bk_Bgbit, params.decomp_offset, C, params.ks_t,
+        params.ks_basebit, params.ks_prec_offset, _stream(acc)))
+    LAUNCHES["blind_rotate_ks_fused"] += 1
+    return r, ext

@@ -1,0 +1,103 @@
+"""TFHE parameter sets (the same frozen dataclass as ``tfhe_tpu.params``).
+
+Everything derives from one frozen, hashable dataclass so the whole pipeline,
+kernels and table caches included, is parameterized by it. The values are the
+reference's only supported set (110-bit security,
+`gpuParallel/tfhe_gate_bootstrapping.cu:25-49`) and the small test sets.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+
+def _mul_by_sqrt_two_over_pi(x: float) -> float:
+    # reference: tfhe_gate_bootstrapping.cu:22 (converts "literature" gaussian param to stdev)
+    return x * math.sqrt(2.0 / math.pi)
+
+
+@dataclass(frozen=True)
+class TfheParams:
+    """All TFHE gate-bootstrapping parameters (ref: TFheGateBootstrappingParameterSet)."""
+
+    n: int = 500          # LWE dimension (in/out params)
+    N: int = 1024         # torus polynomial degree, ring Z[X]/(X^N+1)
+    k: int = 1            # number of TLWE mask polynomials
+    bk_l: int = 2         # TGSW gadget decomposition length
+    bk_Bgbit: int = 10    # log2 of gadget base Bg
+    ks_basebit: int = 2   # key-switch digit bits
+    ks_t: int = 8         # key-switch digit count
+    ks_stdev: float = _mul_by_sqrt_two_over_pi(2.0 ** -15)
+    bk_stdev: float = _mul_by_sqrt_two_over_pi(9e-9)
+    max_stdev: float = _mul_by_sqrt_two_over_pi((2.0 ** -4) / 4.0)
+
+    @property
+    def Bg(self) -> int:
+        return 1 << self.bk_Bgbit
+
+    @property
+    def halfBg(self) -> int:
+        return self.Bg // 2
+
+    @property
+    def maskMod(self) -> int:
+        return self.Bg - 1
+
+    @property
+    def kpl(self) -> int:
+        return (self.k + 1) * self.bk_l
+
+    @property
+    def decomp_offset(self) -> int:
+        """offset = Bg/2 * sum_i 2^(32 - (i+1)*Bgbit), as uint32 (ref tgsw.cu:21-27)."""
+        temp1 = 0
+        for i in range(self.bk_l):
+            temp1 += 1 << (32 - (i + 1) * self.bk_Bgbit)
+        return (temp1 * self.halfBg) & 0xFFFFFFFF
+
+    @property
+    def h(self) -> tuple:
+        """Gadget powers h[i] = 2^(32-(i+1)*Bgbit) as signed Torus32 (ref tgsw.cu:15-19)."""
+        out = []
+        for i in range(self.bk_l):
+            v = 1 << (32 - (i + 1) * self.bk_Bgbit)
+            if v >= 1 << 31:
+                v -= 1 << 32
+            out.append(v)
+        return tuple(out)
+
+    @property
+    def n_extract(self) -> int:
+        """Dimension of the extracted LWE sample (k*N)."""
+        return self.k * self.N
+
+    @property
+    def ks_base(self) -> int:
+        return 1 << self.ks_basebit
+
+    @property
+    def ks_prec_offset(self) -> int:
+        """Rounding offset for the key-switch digit decomposition
+        (ref lwe-keyswitch-functions.cu:106)."""
+        return 1 << (32 - (1 + self.ks_basebit * self.ks_t))
+
+
+# The reference's only parameter set: 110-bit security.
+PARAMS_110 = TfheParams()
+
+# Small deterministic set for fast tests: noise-free, small ring.
+PARAMS_TOY = TfheParams(
+    n=16, N=128, k=1, bk_l=2, bk_Bgbit=10, ks_basebit=2, ks_t=8,
+    ks_stdev=0.0, bk_stdev=0.0, max_stdev=1.0,
+)
+
+# Mid-size set (still fast on CPU, exercises the N=256 NTT).
+PARAMS_SMALL = TfheParams(
+    n=64, N=256, k=1, bk_l=2, bk_Bgbit=10, ks_basebit=2, ks_t=8,
+    ks_stdev=0.0, bk_stdev=0.0, max_stdev=1.0,
+)
+
+# PARAMS_SMALL with the reference's noise levels.
+PARAMS_SMALL_NOISY = TfheParams(
+    n=64, N=256, k=1, bk_l=2, bk_Bgbit=10, ks_basebit=2, ks_t=8,
+)
