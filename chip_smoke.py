@@ -8,17 +8,29 @@ toolkit:
 
 Phases (each prints its own lines; any failure raises and exits nonzero):
   1. device   the card's name, and its name and power limit from nvidia-smi;
-  2. build    nvcc builds csrc/*.cu into build/tfhe_tpu_torch/ (seconds);
+  2. build    nvcc builds csrc/*.cu into build/tfhe_tpu_torch/, one process
+              per source, all at once (seconds);
   3. kernels  every kernel against its plain-torch version on the card,
               byte-equal (tolerance: exact), and the time of each at the
-              PARAMS_110 batch-256 shapes beside its plain version's;
+              PARAMS_110 shapes of its path (K1, K3, K4: batch 256; K5, the
+              small-batch blind rotate: batch 1) beside its plain version's;
+              then K5 beside K3 over a sweep of batch sizes;
   4. main     the reference's keys at PARAMS_110 on the card; a batch of 256
               encrypted AND gates through the fused route must decrypt to
               a & b, through the kernels (launch counters), equal the split
               route, and match the golden SHA-256 that tfhe_tpu computed on
               the CPU for 8 reference-encrypted inputs;
   5. timing   AND chained 5 times on the batch of 256, kernel route and plain
-              route, in ms per batch and bootstraps/s.
+              route, in ms per batch and bootstraps/s;
+  6. circuits the serial-circuit path: 16-bit CipherInt operands at one
+              number per batch with the reference's keys at PARAMS_110; +, -,
+              *, >, eq, abs, minimum and / must decrypt to the plaintext
+              answer through K5 (launch counters), add16 must match the golden
+              SHA-256 tfhe_tpu computed on the CPU, and each op's wall time
+              is printed; then the same ops at PARAMS_SMALL on 8-bit operands
+              of batch 3 must equal, byte for byte, the plain route (the same
+              circuits on CPU tensors, where every wrapper takes its plain
+              version).
 
 The line before the last is a JSON object with the path's kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script exits
@@ -38,9 +50,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_and_golden.json")
+GOLDEN_ADD16 = os.path.join(ROOT, "tests", "fixtures", "torch_port_add16_golden.json")
 BATCH = 256
 CHAIN = 5
 SOURCE = "tfhe_tpu_torch/csrc/cmux.cu"
+SOURCE_SMALL = "tfhe_tpu_torch/csrc/blind_rotate_small.cu"
+SWEEP = (1, 2, 8, 32, 64, 96, 128, 132, 264)   # K5 beside K3; 132/264: one/two waves
 
 
 def log(msg: str) -> None:
@@ -82,15 +97,41 @@ def expect_equal(name: str, got, want) -> int:
     return err
 
 
-def random_bk(params, n: int, rng: np.random.RandomState, device):
-    """Random NTT-domain key slices in the bk_rows layout, with Shoup twins."""
+def random_bk(params, n: int, rng: np.random.RandomState, device, layout: str = "rows"):
+    """Random NTT-domain key slices with Shoup twins, in the bk_rows layout
+    (K1-K4) or the bk_ntt layout (K5)."""
     from tfhe_tpu_torch import ntt
     from tfhe_tpu_torch.core.keys import bk_rows_layout
     bk = np.stack([rng.randint(0, p, size=(n, params.kpl, params.k + 1, params.N))
                    .astype(np.uint32) for p in ntt.PRIMES], axis=1)
     sh = np.stack([ntt.shoup(bk[:, i], p) for i, p in enumerate(ntt.PRIMES)], axis=1)
-    return (torch.from_numpy(bk_rows_layout(bk)).to(device),
-            torch.from_numpy(bk_rows_layout(sh)).to(device))
+    if layout == "rows":
+        bk, sh = bk_rows_layout(bk), bk_rows_layout(sh)
+    return torch.from_numpy(bk).to(device), torch.from_numpy(sh).to(device)
+
+
+def packed(acc: torch.Tensor) -> torch.Tensor:
+    """acc int32[B, k+1, N] -> K5's packed layout int32[(k+1)*B, N/128, 128]."""
+    B, k1, N = acc.shape
+    return acc.transpose(0, 1).reshape(k1 * B, N // 128, 128)
+
+
+def check_k5(params, acc, bara_t, bk, sh, tks, label: str) -> int:
+    """Both K5 wrappers (the rotate alone, and rotate + key switch) against
+    their plain versions on the card; returns the max |err| (0)."""
+    from tfhe_tpu_torch.ops import cmux_packed as cp
+    acc_p, acc_t = packed(acc), acc.permute(1, 2, 0)
+    B = acc.shape[0]
+    err = expect_equal(f"blind_rotate_fused_packed {label} B={B}",
+                       cp.blind_rotate_fused_packed(acc_p, bara_t, bk, sh, params),
+                       cp.blind_rotate_fused_packed_ref(acc_p, bara_t, bk, sh, params))
+    err = max(err, expect_equal(
+        f"blind_rotate_packed_ks_fused {label} B={B}",
+        cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks, params),
+        cp.blind_rotate_packed_ks_fused_ref(acc_t, bara_t, bk, sh, tks, params)))
+    log(f"[kernels] K5 (blind_rotate_fused_packed, alone and with the key switch) {label} "
+        f"B={B}: byte-equal to plain (max |err| {err})")
+    return err
 
 
 # ----------------------------------------------------------------- phases
@@ -149,12 +190,23 @@ def check_small_kernels() -> list:
     torch.cuda.synchronize()
     for r in rows:
         log(f"[kernels] {r}: byte-equal to plain (tolerance exact)")
+    bk, sh = random_bk(params, params.n, rng, dev, layout="ntt")
+    C = -(-(params.n + 1) // 128) * 128
+    tks = torch.from_numpy(rng.randint(-128, 128, size=(24, params.N, 4 * C))
+                           .astype(np.int8)).to(dev)
+    for B in (1, 3, 64):
+        acc = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, size=(B, 2, params.N))
+                               .astype(np.int32)).to(dev)
+        bara = torch.from_numpy(rng.randint(0, 2 * params.N, size=(params.n, B))
+                                .astype(np.int32)).to(dev)
+        check_k5(params, acc, bara, bk, sh, tks, "SMALL (random key)")
     return rows
 
 
-def phase_kernels(sk, x) -> dict:
+def phase_kernels(sk, x, smi: str) -> dict:
     """K1, K3 and K4 at the PARAMS_110 batch-256 shapes: byte-equal to the
-    plain versions on real keys and a real accumulator, and timed."""
+    plain versions on real keys and a real accumulator, and timed; then K5
+    (phase_k5)."""
     from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.ops import cmux
@@ -182,7 +234,45 @@ def phase_kernels(sk, x) -> dict:
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         log(f"[kernels] {name} PARAMS_110 B={BATCH}: byte-equal (max |err| {err}), "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    out["blind_rotate_fused_packed"] = phase_k5(sk, x, smi)
     return out
+
+
+def phase_k5(sk, x, smi: str) -> dict:
+    """K5 at PARAMS_110 on real keys: byte-equal at B = 1 and 64, its time at
+    B = 1 (the MAJ stages of a comparison) beside the plain version's, and
+    the sweep of B beside K3."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.core.lwe import lwe_concat
+    from tfhe_tpu_torch.ops import cmux, cmux_packed as cp
+    params, cloud = sk.params, sk.cloud
+    bk, sh, tks = cloud.bk_ntt, cloud.bk_ntt_shoup, cloud.ks_table_perm
+    err = 0
+    for B in (1, 64):
+        acc, bara = bs._prepare_acc(x[:B], gates.MU, cloud)
+        err = max(err, check_k5(params, acc, bara.T, bk, sh, tks, "PARAMS_110 (reference keys)"))
+    acc, bara = bs._prepare_acc(x[:1], gates.MU, cloud)
+    acc_p, acc_t, bara_t = packed(acc), acc.permute(1, 2, 0), bara.T
+    ms = cuda_ms(lambda: cp.blind_rotate_fused_packed(acc_p, bara_t, bk, sh, params), 5)
+    plain_ms = cuda_ms(lambda: cp.blind_rotate_fused_packed_ref(acc_p, bara_t, bk, sh, params), 1)
+    ks_ms = cuda_ms(lambda: cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks, params), 5)
+    log(f"[kernels] blind_rotate_fused_packed PARAMS_110 B=1: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms; with the key switch {ks_ms:.3f} ms ({smi})")
+    xs = lwe_concat([x, x[:max(SWEEP) - x.b.shape[0]]])
+    for B in SWEEP:
+        acc, bara = bs._prepare_acc(xs[:B], gates.MU, cloud)
+        acc_p, acc_t, bara_t = packed(acc), acc.permute(1, 2, 0), bara.T
+        k5 = cuda_ms(lambda: cp.blind_rotate_fused_packed(acc_p, bara_t, bk, sh, params), 3)
+        k3 = cuda_ms(lambda: cmux.blind_rotate_fused(acc_t, bara_t, cloud.bk_rows,
+                                                     cloud.bk_rows_shoup, params), 3)
+        k5ks = cuda_ms(lambda: cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks,
+                                                               params), 3)
+        k4 = cuda_ms(lambda: cmux.blind_rotate_ks_fused(acc_t, bara_t, cloud.bk_rows,
+                                                        cloud.bk_rows_shoup, tks, params), 3)
+        log(f"[kernels] sweep PARAMS_110 B={B}: K5 {k5:.3f} ms, K3 {k3:.3f} ms; "
+            f"K5 + key switch {k5ks:.3f} ms, K4 {k4:.3f} ms ({smi})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def _hash(ct) -> str:
@@ -267,6 +357,118 @@ def phase_timing(sk, x, y, want, smi: str) -> dict:
     return out
 
 
+def circuit_ops(x, y, xpos, ypos):
+    """The reference's 16-bit Cipher API as (name, call, plaintext answer of
+    (a, b)) on CipherInts x, y and their absolute values xpos, ypos (minimum
+    takes positive operands)."""
+    return [
+        ("+", lambda: x + y, lambda a, b: a + b),
+        ("-", lambda: x - y, lambda a, b: a - b),
+        ("*", lambda: x * y, lambda a, b: a * b),
+        (">", lambda: x > y, lambda a, b: (a > b).astype(np.int64)),
+        ("eq", lambda: x.eq(y), lambda a, b: (a == b).astype(np.int64)),
+        ("abs", lambda: x.abs(), lambda a, b: np.abs(a)),
+        ("minimum", lambda: xpos.minimum(ypos), lambda a, b: np.minimum(np.abs(a), np.abs(b))),
+        ("/", lambda: x / y, lambda a, b: np.trunc(a / b).astype(np.int64)),
+    ]
+
+
+def expect_plaintext(sk, label: str, out, truth, a, b, nbits: int) -> np.ndarray:
+    """Decrypt an op's output (a CipherInt as a signed nbits integer, a
+    comparison as a bit), hold it against truth(a, b) and return it."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith
+    if hasattr(out, "ct"):
+        got = arith.decrypt_int(sk, out.ct)
+        want = np.asarray(truth(a, b), np.int64) & ((1 << nbits) - 1)
+        want = np.where(want >> (nbits - 1), want - (1 << nbits), want)
+    else:
+        got, want = tt.decrypt_bits(sk, out).astype(np.int64), truth(a, b)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label} decrypts to {got}, want {want}")
+    return got
+
+
+def phase_circuits(sk, smi: str) -> dict:
+    """The serial-circuit path: 16-bit CipherInt ops at one number per batch,
+    PARAMS_110, the reference's keys on the card. Each op runs twice (the
+    first run puts its index plans on the card) and the second is timed.
+    Returns the launch counts of this phase."""
+    from tfhe_tpu_torch import ref_keygen
+    from tfhe_tpu_torch.cipher import CipherInt
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    from tfhe_tpu_torch.ops import cmux
+    with open(GOLDEN_ADD16) as f:
+        g = json.load(f)
+    nb, cloud = g["nbits"], sk.cloud
+    ref_keygen.keygen_raw(tuple(g["seed"]))      # restarts the reference's stream
+    ca, cb = ref_keygen.encrypt_bits(sk.lwe_key, g["a_bits"] + g["b_bits"])
+
+    def ct(a, b):
+        return LweCiphertext(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+                             torch.zeros(b.shape, dtype=torch.float32, device="cuda"))
+
+    x, y = CipherInt(ct(ca[:nb], cb[:nb]), cloud), CipherInt(ct(ca[nb:], cb[nb:]), cloud)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    a, b = np.array(g["a"]), np.array(g["b"])
+    xpos = CipherInt.encrypt(sk, np.abs(a), nb, gen, "cuda")
+    if b < 0:
+        raise ValueError("the golden's b must be positive: minimum takes it as it is")
+    cmux.reset_launches()
+    for name, call, truth in circuit_ops(x, y, xpos, y):
+        before = dict(cmux.LAUNCHES)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = expect_plaintext(sk, f"{name} 16-bit", out, truth, a, b, nb)
+        k5 = (cmux.LAUNCHES["blind_rotate_fused_packed"] - before["blind_rotate_fused_packed"]) // 2
+        if k5 < 1:
+            raise AssertionError(f"{name}: no stage went through blind_rotate_fused_packed")
+        log(f"[circuits] {name} 16-bit PARAMS_110, one number: decrypts to the plaintext "
+            f"answer {int(got)}, {ms:.3f} ms, {k5} launches of blind_rotate_fused_packed "
+            f"({smi})")
+        if name == "+":
+            digest = _hash(out.ct)
+            if digest != g["sha256"]:
+                raise AssertionError(f"add16 SHA-256 {digest} != {g['sha256']}")
+            log(f"[circuits] add16 matches tfhe_tpu's SHA-256 {digest}")
+    torch.cuda.synchronize()
+    launches = dict(cmux.LAUNCHES)
+    log(f"[circuits] launch counts: {launches}")
+    return launches
+
+
+def phase_circuits_plain() -> None:
+    """The same ops at PARAMS_SMALL, 8-bit operands, batch 3: on the card
+    (kernels) and on CPU copies of the keys and inputs (the plain route),
+    byte for byte."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith
+    from tfhe_tpu_torch.cipher import CipherInt
+    nb = 8
+    sk = tt.keygen(tt.PARAMS_SMALL, seed=8, device="cuda")
+    cpu_cloud = sk.cloud.to("cpu")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    a, b = np.array([-100, 37, 5]), np.array([23, -61, 5])
+    cts = [arith.encrypt_int(sk, v, nb, gen, "cuda") for v in (a, b, np.abs(a), np.abs(b))]
+    card = [CipherInt(c, sk.cloud) for c in cts]
+    host = [CipherInt(c.to("cpu"), cpu_cloud) for c in cts]
+    t0 = time.time()
+    for (name, call, truth), (_, call_h, _) in zip(circuit_ops(*card), circuit_ops(*host)):
+        out, plain = call(), call_h()
+        expect_plaintext(sk, f"{name} PARAMS_SMALL", out, truth, a, b, nb)
+        got, want = (out.ct, plain.ct) if hasattr(out, "ct") else (out, plain)
+        if not (torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b)):
+            raise AssertionError(f"{name} PARAMS_SMALL: the card differs from the plain route")
+    log(f"[circuits] +, -, *, >, eq, abs, minimum, / at PARAMS_SMALL, 8-bit, batch 3: "
+        f"the card equals the plain route byte for byte ({time.time() - t0:.1f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -303,9 +505,11 @@ def main() -> int:
     x = tt.encrypt_bits(sk, bits_x, gen, "cuda")
     y = tt.encrypt_bits(sk, bits_y, gen, "cuda")
 
-    timed = phase_kernels(sk, x)
+    timed = phase_kernels(sk, x, dev["smi"])
     launches = phase_main(sk, golden_in, x, y, bits_x, bits_y)
     phase_timing(sk, x, y, bits_x & bits_y, dev["smi"])
+    circuit_launches = phase_circuits(sk, dev["smi"])
+    phase_circuits_plain()
 
     kernels = [
         {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
@@ -314,6 +518,10 @@ def main() -> int:
         {"name": "blind_rotate_ks", "route": "cuda", "source": SOURCE,
          "replaces": "tfhe_tpu/ops/cmux_pallas.py:485",
          "launches": launches["blind_rotate_ks_fused"], **timed["blind_rotate_ks"]},
+        {"name": "blind_rotate_fused_packed", "route": "cuda", "source": SOURCE_SMALL,
+         "replaces": "tfhe_tpu/ops/cmux_pallas_packed.py:259",
+         "launches": circuit_launches["blind_rotate_fused_packed"],
+         **timed["blind_rotate_fused_packed"]},
     ]
     off_path = [{"name": "cmux_delta", "route": "cuda", "source": SOURCE,
                  "replaces": "tfhe_tpu/ops/cmux_pallas.py:575", **timed["cmux_delta"]}]

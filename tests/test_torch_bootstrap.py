@@ -20,6 +20,7 @@ from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core import keys
 from tfhe_tpu_torch.core.lwe import LweCiphertext
 from tfhe_tpu_torch.ops import cmux
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x) -> torch.Tensor:

@@ -14,6 +14,7 @@ from tfhe_tpu.core.crypt import lwe_phase as j_lwe_phase
 import tfhe_tpu_torch as pt
 from tfhe_tpu_torch import config, numeric
 from tfhe_tpu_torch.core import keys, lwe
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x) -> torch.Tensor:

@@ -22,6 +22,7 @@ import tfhe_tpu_torch as pt
 from tfhe_tpu_torch import config, gates, ref_keygen
 from tfhe_tpu_torch.core import keys
 from tfhe_tpu_torch.core.lwe import LweCiphertext
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "torch_port_and_golden.json")
 
@@ -92,7 +93,7 @@ def test_not_copy_constant_match(toy):
     jsk, psk, bits, (x, _, _) = toy
     _assert_same(gates.NOT(_ct(x)), jg.NOT(x))
     _assert_same(gates.COPY(_ct(x)), jg.COPY(x))
-    _assert_same(gates.CONSTANT([1, 0, 1], 16, (3,)), jg.CONSTANT(jnp.asarray([1, 0, 1]), 16, (3,)))
+    _assert_same(gates.CONSTANT([1, 0, 1], 16, (3,), device="cpu"), jg.CONSTANT(jnp.asarray([1, 0, 1]), 16, (3,)))
     np.testing.assert_array_equal(pt.decrypt_bits(psk, gates.NOT(_ct(x))), 1 - bits[:, 0])
 
 

@@ -12,6 +12,7 @@ from tfhe_tpu import oracle
 from tfhe_tpu.ops import cmux_pallas as jcp
 from tfhe_tpu_torch import ntt
 from tfhe_tpu_torch.ops import cmux
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PRIMES = (ntt.P1, ntt.P2)
 

@@ -4,14 +4,18 @@ Port of ``tfhe_tpu.core.bootstrap`` (the reference's
 `tfhe_bootstrap_FFT`, lwe-bootstrapping-functions-fft.cu:1884, and the fused
 GPU pipeline `boot-gates.cu:2120-2629`). The pieces below are plain torch
 with exact integer math; they are the CPU path and the plain versions of the
-kernels. The blind rotate runs through the ``ops.cmux`` wrappers, which
-launch the CUDA kernels for CUDA tensors and take these plain pieces for CPU
-tensors. Two routes, the same bits:
+kernels. The blind rotate runs through the ``ops.cmux`` and
+``ops.cmux_packed`` wrappers, which launch the CUDA kernels for CUDA tensors
+and take these plain pieces for CPU tensors. Every route gives the same bits:
 
-- fused (default on CUDA): ``ops.cmux.blind_rotate_ks_fused`` does the
-  blind rotate, sample extract and key switch;
-- split (default on the CPU): ``ops.cmux.blind_rotate_fused``, then
-  ``sample_extract`` and the one-hot int8 matmul ``key_switch``.
+- fused (default on CUDA): one wrapper does the blind rotate, sample extract
+  and key switch;
+- split (default on the CPU): a blind-rotate wrapper, then
+  ``sample_extract`` and the one-hot int8 matmul ``key_switch``;
+- a flat batch of at most ``SMALL_BATCH_MAX`` samples (every stage of a
+  serial circuit) takes the small-batch blind rotate of
+  ``ops.cmux_packed`` (K5, a cluster of two CTAs per sample), a larger one
+  the one-block-per-sample kernels of ``ops.cmux`` (K3/K4).
 """
 from __future__ import annotations
 
@@ -21,8 +25,14 @@ from ..params import TfheParams
 from .. import ntt
 from ..config import fuseks_enabled
 from ..numeric import i32, mod_switch_from_torus32
-from ..ops import cmux
+from ..ops import cmux, cmux_packed
 from .lwe import LweCiphertext
+
+# Largest flat batch that takes the small-batch blind rotate. Measured on an
+# H100 (132 SMs, 700 W) at PARAMS_110: K5 beats K3 at every B up to 132, the
+# most that one wave holds (two-CTA clusters, two CTAs per SM), and loses at
+# 264, where it needs a second wave (PERF.md, "Findings").
+SMALL_BATCH_MAX = 132
 
 
 # ------------------------------------------------------------------ pieces
@@ -194,6 +204,10 @@ def _bootstrap_variance(params: TfheParams) -> float:
     return float(n * ((k + 1) * l * N * (Bg / 2.0) ** 2 * var_bk + (1 + k * N) * eps2))
 
 
+def _small(x: LweCiphertext) -> bool:
+    return x.b.shape[0] <= SMALL_BATCH_MAX
+
+
 def bootstrap_woks(x: LweCiphertext, mu, cloud):
     """Bootstrap without key switch: returns the extracted (a_ext, b_ext, cv)
     (ref tfhe_bootstrap_woKS_FFT, lwe-bootstrapping-functions-fft.cu:1834-1880).
@@ -201,9 +215,16 @@ def bootstrap_woks(x: LweCiphertext, mu, cloud):
     x: flat batch [B]. mu: int32 scalar or [B], the output message amplitude."""
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
-    acc_t = cmux.blind_rotate_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
-                                    cloud.bk_rows_shoup, params)
-    a_ext, b_ext = sample_extract(acc_t.permute(2, 0, 1), params)
+    k1, B, N = params.k + 1, x.b.shape[0], params.N
+    if _small(x):
+        acc_p = acc.transpose(0, 1).reshape(k1 * B, N // cmux_packed.LANE, cmux_packed.LANE)
+        out_p = cmux_packed.blind_rotate_fused_packed(acc_p, bara.T, cloud.bk_ntt,
+                                                      cloud.bk_ntt_shoup, params)
+        acc = out_p.reshape(k1, B, N).transpose(0, 1)
+    else:
+        acc = cmux.blind_rotate_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
+                                      cloud.bk_rows_shoup, params).permute(2, 0, 1)
+    a_ext, b_ext = sample_extract(acc, params)
     cv = torch.full((x.b.shape[0],), _bootstrap_variance(params), dtype=torch.float32,
                     device=x.device)
     return a_ext, b_ext, cv
@@ -218,11 +239,16 @@ def finish_fused_ks(r: torch.Tensor, ext: torch.Tensor, params: TfheParams) -> L
 
 
 def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud) -> LweCiphertext:
-    """bootstrap() through ops.cmux.blind_rotate_ks_fused."""
+    """bootstrap() through a blind rotate, extract and key switch in one wrapper."""
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
-    r, ext = cmux.blind_rotate_ks_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
-                                        cloud.bk_rows_shoup, cloud.ks_table_perm, params)
+    if _small(x):
+        r, ext = cmux_packed.blind_rotate_packed_ks_fused(
+            acc.permute(1, 2, 0), bara.T, cloud.bk_ntt, cloud.bk_ntt_shoup,
+            cloud.ks_table_perm, params)
+    else:
+        r, ext = cmux.blind_rotate_ks_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
+                                            cloud.bk_rows_shoup, cloud.ks_table_perm, params)
     return finish_fused_ks(r, ext, params)
 
 

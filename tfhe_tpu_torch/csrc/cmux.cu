@@ -9,7 +9,9 @@
 //                          _step_kernel :291): all n CMux steps in one launch.
 //   keyswitch_kernel    <- the key-switch epilogue of blind_rotate_ks_fused
 //                          (:485, _scan_ks_kernel :398); tfhe_blind_rotate_ks
-//                          launches blind_rotate_kernel and then this kernel.
+//                          launches blind_rotate_kernel and then this kernel,
+//                          blind_rotate_small.cu its own blind rotate and then
+//                          this kernel (through tfhe_keyswitch).
 //
 // Design (first, simple version): one block of N/2 threads per sample. The
 // accumulator int32[2][N] (8 KB at N = 1024) stays in shared memory for all
@@ -231,18 +233,26 @@ int tfhe_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_t* bk, con
   return (int)launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
 }
 
+// Sample extract and key switch of acc int32[B][2][N]; also called by
+// blind_rotate_small.cu after its blind rotate.
+int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* r, int32_t* ext, int B, int N,
+                   int C, int t, int basebit, unsigned int prec_offset, cudaStream_t stream) {
+  const size_t smem = (size_t)(N + 1) * sizeof(uint32_t);
+  const cudaError_t err = allow_smem(keyswitch_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  keyswitch_kernel<<<B, C / 4, smem, stream>>>(acc, tks, r, ext, B, N, C, t, basebit, prec_offset);
+  return (int)cudaGetLastError();
+}
+
 int tfhe_blind_rotate_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                          const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
                          int32_t* r, int32_t* ext, int B, int n, int N, int bgbit,
                          unsigned int offset, int C, int t, int basebit,
                          unsigned int prec_offset, cudaStream_t stream) {
-  cudaError_t err = launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
+  const cudaError_t err =
+      launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(N + 1) * sizeof(uint32_t);
-  err = allow_smem(keyswitch_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  keyswitch_kernel<<<B, C / 4, smem, stream>>>(acc, tks, r, ext, B, N, C, t, basebit, prec_offset);
-  return (int)cudaGetLastError();
+  return tfhe_keyswitch(acc, tks, r, ext, B, N, C, t, basebit, prec_offset, stream);
 }
 
 const char* tfhe_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tfhe_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 
 def _nvcc() -> str:
@@ -41,7 +42,7 @@ def _sources():
 
 def library_path() -> str:
     """Path of the library for the current sources (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -51,26 +52,36 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels unless the library for these sources exists.
-    The compiler's report (registers, shared memory, spills) is kept
-    beside the library as ``<library>.log``."""
+
+    One ``nvcc -c`` per source, all started together, then one link. The
+    compilers' report (registers, shared memory, spills) is kept beside the
+    library as ``<library>.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     cus = [s for s in _sources() if s.endswith(".cu")]
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+        objs = [os.path.join(work, os.path.basename(s) + ".o") for s in cus]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(cus, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({p.returncode}):\n{log[-8000:]}")
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", tmp, *objs],
                               capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}")
         with open(so + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(logs) + link.stdout + link.stderr)
         os.replace(tmp, so)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 
@@ -91,7 +102,10 @@ def library() -> ctypes.CDLL:
     lib.tfhe_blind_rotate.argtypes = [P, P, P, P, P, I, I, I, I, U, P]
     lib.tfhe_blind_rotate_ks.argtypes = [P, P, P, P, P, P, P, P,
                                          I, I, I, I, U, I, I, I, U, P]
-    for fn in (lib.tfhe_cmux_delta, lib.tfhe_blind_rotate, lib.tfhe_blind_rotate_ks):
+    lib.tfhe_blind_rotate_small.argtypes = lib.tfhe_blind_rotate.argtypes
+    lib.tfhe_blind_rotate_small_ks.argtypes = lib.tfhe_blind_rotate_ks.argtypes
+    for fn in (lib.tfhe_cmux_delta, lib.tfhe_blind_rotate, lib.tfhe_blind_rotate_ks,
+               lib.tfhe_blind_rotate_small, lib.tfhe_blind_rotate_small_ks):
         fn.restype = ctypes.c_int
     lib.tfhe_error_string.argtypes = [I]
     lib.tfhe_error_string.restype = ctypes.c_char_p

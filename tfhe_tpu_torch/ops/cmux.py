@@ -26,8 +26,10 @@ from ..params import TfheParams
 from ..core import bootstrap as bs
 from ._build import check, library
 
+# one count per TPU kernel replaced; blind_rotate_fused_packed (K5) is
+# launched by the wrappers of ops/cmux_packed.py
 LAUNCHES = {"cmux_delta": 0, "blind_rotate_step": 0, "blind_rotate_fused": 0,
-            "blind_rotate_ks_fused": 0}
+            "blind_rotate_ks_fused": 0, "blind_rotate_fused_packed": 0}
 
 
 def reset_launches() -> None:
@@ -101,6 +103,15 @@ def _check_bk(bk: torch.Tensor, bksh: torch.Tensor, lead: tuple, params: TfhePar
         _expect(t, torch.uint32, shape, name)
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_tks(tks_lane: torch.Tensor, params: TfheParams) -> int:
+    """Check the permuted KS limb table; returns C (columns per limb plane)."""
+    TB, C4 = params.ks_t * (params.ks_base - 1), tks_lane.shape[-1]
+    _expect(tks_lane, torch.int8, (TB, params.N, C4), "tks_lane")
+    if C4 % 512 or C4 // 16 > 1024 or not tks_lane.is_contiguous():
+        raise ValueError("tks_lane: want contiguous, 4*C with C a multiple of 128")
+    return C4 // 4
 
 
 def _check_params(params: TfheParams) -> None:
@@ -220,12 +231,10 @@ def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.T
 
 # ------------------------------------------------------------------ K4
 
-def blind_rotate_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
-                              bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
-                              params: TfheParams):
-    """Plain version of blind_rotate_ks_fused: blind rotate, native-order
-    extract, one-hot digit matrix, limb-table product, recombine."""
-    acc = blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)   # [2, N, B]
+def keyswitch_ref(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
+    """Plain version of the key-switch kernel on a rotated accumulator
+    acc int32[k+1, N, B]: native-order extract, one-hot digit matrix,
+    limb-table product, recombine. Returns (r, ext) as blind_rotate_ks_fused."""
     a0 = acc[0].T                                                           # [B, N]
     x = torch.cat([a0[:, :1], -a0[:, 1:]], dim=1)
     TB, N, C4 = tks_lane.shape
@@ -233,6 +242,14 @@ def blind_rotate_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: 
     onehot = onehot.reshape(x.shape[0], N, TB).transpose(1, 2).reshape(x.shape[0], TB * N)
     r = bs.ks_recombine(bs.int8_matmul(onehot, tks_lane.reshape(TB * N, C4)))
     return r, torch.stack([acc[1, 0, :], nnz])
+
+
+def blind_rotate_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
+                              bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
+                              params: TfheParams):
+    """Plain version of blind_rotate_ks_fused: blind rotate, then keyswitch_ref."""
+    acc = blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)   # [2, N, B]
+    return keyswitch_ref(acc, tks_lane, params)
 
 
 def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
@@ -253,11 +270,7 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
     n = bara.shape[0]
     _expect(bara, torch.int32, (n, B), "bara")
     _check_bk(bk_rows, bksh_rows, (n,), params)
-    TB, C4 = params.ks_t * (params.ks_base - 1), tks_lane.shape[-1]
-    _expect(tks_lane, torch.int8, (TB, params.N, C4), "tks_lane")
-    if C4 % 512 or C4 // 16 > 1024 or not tks_lane.is_contiguous():
-        raise ValueError("tks_lane: want contiguous, 4*C with C a multiple of 128")
-    C = C4 // 4
+    C = _check_tks(tks_lane, params)
     bara_b = bara.T.contiguous()
     r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
     ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
