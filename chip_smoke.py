@@ -12,14 +12,23 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               per source, all at once (seconds);
   3. kernels  every kernel against its plain-torch version on the card,
               byte-equal (tolerance: exact), and the time of each at the
-              PARAMS_110 shapes of its path (K1, K3, K4: batch 256; K5, the
-              small-batch blind rotate: batch 1) beside its plain version's;
-              then K5 beside K3 over a sweep of batch sizes;
-  4. main     the reference's keys at PARAMS_110 on the card; a batch of 256
-              encrypted AND gates through the fused route must decrypt to
-              a & b, through the kernels (launch counters), equal the split
-              route, and match the golden SHA-256 that tfhe_tpu computed on
-              the CPU for 8 reference-encrypted inputs;
+              PARAMS_110 shapes of its path (K1-K4 and the key switch: batch
+              256; K5, the small-batch blind rotate, and the key switch:
+              batch 1) beside its plain version's, its bound (the least time
+              the card could take) and, for the key switch, the one PyTorch
+              call that computes the same (torch._int_mm on the one-hot
+              matrix); K3 and K4 again at the first batch the bootstrap gives
+              them (SMALL_BATCH_MAX + 1) and K5 at the batch of the gate path
+              (256), byte-equal; the key-switch kernel alone at both arms over
+              a list of batches, with all-zero and all-nonzero digits; then
+              the key switch and K5 (beside K3) over sweeps of the batch;
+  4. main     the reference's keys at PARAMS_110, made on the card; a batch
+              of 256 encrypted AND gates through the fused route must decrypt
+              to a & b, through the kernels (launch counters), equal the
+              split route, and match the golden SHA-256 that tfhe_tpu
+              computed on the CPU for 8 reference-encrypted inputs; then a
+              batch beyond SMALL_BATCH_MAX the same way, through the
+              one-block-per-sample kernels (K3, K4);
   5. timing   AND chained 5 times on the batch of 256, kernel route and plain
               route, in ms per batch and bootstraps/s;
   6. circuits the serial-circuit path: 16-bit CipherInt operands at one
@@ -27,10 +36,14 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               *, >, eq, abs, minimum and / must decrypt to the plaintext
               answer through K5 (launch counters), add16 must match the golden
               SHA-256 tfhe_tpu computed on the CPU, and each op's wall time
-              is printed; then the same ops at PARAMS_SMALL on 8-bit operands
+              is printed; add16 and div16 again with the key switch's
+              tensor-core arm forced at every batch, in turns with the planned
+              arms; then the same ops at PARAMS_SMALL on 8-bit operands
               of batch 3 must equal, byte for byte, the plain route (the same
               circuits on CPU tensors, where every wrapper takes its plain
-              version).
+              version);
+  7. profile  one 16-bit add under torch.profiler: device time by kernel and
+              the device's idle share.
 
 The line before the last is a JSON object with the path's kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script exits
@@ -38,6 +51,7 @@ nonzero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -55,7 +69,20 @@ BATCH = 256
 CHAIN = 5
 SOURCE = "tfhe_tpu_torch/csrc/cmux.cu"
 SOURCE_SMALL = "tfhe_tpu_torch/csrc/blind_rotate_small.cu"
-SWEEP = (1, 2, 8, 32, 64, 96, 128, 132, 264)   # K5 beside K3; 132/264: one/two waves
+SWEEP = (1, 2, 8, 30, 31, 64, 132, 133, 264, 265, 396, 528, 1056, 2048)   # K5 beside K3
+KS_CHECK = (1, 2, 3, 33, 64, 256)           # key switch against keyswitch_ref, both arms
+KS_SWEEP = (1, 2, 8, 16, 24, 32, 64, 128, 256)   # key switch beside torch._int_mm
+# Peak rates the bounds are taken against (NVIDIA's H100 SXM data sheet): device
+# memory 3.35 TB/s, int8 tensor cores 1,979 TOP/s dense; int32 outside the
+# tensor cores: 64 lanes per SM at the card's maximum SM clock.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+INT32_LANES_PER_SM = 64
+# int32 operations of the leanest known form of the CMux arithmetic: a lazy
+# Harvey butterfly (fold 2, Shoup product 3, add, subtract) and a Shoup
+# multiply-accumulate (product 3, add, fold)
+OPS_PER_BUTTERFLY = 7
+OPS_PER_MAC = 5
 
 
 def log(msg: str) -> None:
@@ -95,6 +122,61 @@ def expect_equal(name: str, got, want) -> int:
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from its plain version, max |err| {err}")
     return err
+
+
+@functools.lru_cache(maxsize=1)
+def int32_ops_per_s() -> float:
+    """SMs x 64 int32 lanes x the maximum SM clock nvidia-smi reports."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cmux_ops(params, B: int, steps: int) -> float:
+    """int32 operations of `steps` CMux steps on B samples: per prime kpl
+    forward and k+1 inverse transforms of N/2 * log2(N) butterflies, and
+    N * kpl * (k+1) multiply-accumulates."""
+    N, primes = params.N, 2
+    logn = N.bit_length() - 1
+    bfly = primes * (params.kpl + params.k + 1) * (N // 2) * logn
+    mac = primes * N * params.kpl * (params.k + 1)
+    return float(B) * steps * (bfly * OPS_PER_BUTTERFLY + mac * OPS_PER_MAC)
+
+
+def cmux_seconds(params, B: int, steps: int) -> float:
+    return cmux_ops(params, B, steps) / int32_ops_per_s()
+
+
+def bound(moved_bytes: float, ops_seconds: float) -> dict:
+    """bound_ms: the larger of bytes over the memory rate and operations over
+    their peak rates; bound_by says which."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S * 1e3, ops_seconds * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def keyswitch_work(acc_t, tks, params, outputs) -> tuple:
+    """(bytes, seconds of operations) a key switch of this accumulator needs:
+    the table rows its nonzero digits select, each distinct row read once
+    (what this run's data needs), acc[0] read and (r, ext) written once; as
+    operations the cheaper of one int32 add per selected byte and the one-hot
+    int8 product."""
+    from tfhe_tpu_torch.core import bootstrap as bs
+    a0 = acc_t[0].T
+    onehot = bs.ks_onehot(torch.cat([a0[:, :1], -a0[:, 1:]], dim=1), params)
+    row_bytes = tks.shape[-1]
+    rows_read = int(onehot.any(dim=0).sum().item())
+    selected = int(onehot.sum(dtype=torch.int64).item())
+    moved = rows_read * row_bytes + nbytes(acc_t[0], *outputs)
+    adds = selected * row_bytes / int32_ops_per_s()
+    product = 2.0 * onehot.shape[0] * onehot.shape[1] * row_bytes / INT8_OPS_PER_S
+    return moved, min(adds, product)
 
 
 def random_bk(params, n: int, rng: np.random.RandomState, device, layout: str = "rows"):
@@ -203,53 +285,210 @@ def check_small_kernels() -> list:
     return rows
 
 
+def ks_inputs(params, B: int, rng, kind: str) -> torch.Tensor:
+    """A rotated accumulator int32[2, N, B] on the card whose key-switch
+    digits are random, all zero ("zero") or all nonzero ("full")."""
+    N = params.N
+    acc = rng.randint(-2 ** 31, 2 ** 31, size=(2, N, B)).astype(np.int64)
+    if kind == "zero":
+        acc[0] = params.ks_prec_offset
+        acc[0, 0] = -params.ks_prec_offset
+    elif kind == "full":
+        digs = rng.randint(1, params.ks_base, size=(N, B, params.ks_t))
+        u = sum(digs[..., j].astype(np.int64) << (32 - (j + 1) * params.ks_basebit)
+                for j in range(params.ks_t)) + 1
+        xs = u - params.ks_prec_offset
+        xs[1:] = -xs[1:]
+        acc[0] = (xs + 2 ** 31) % 2 ** 32 - 2 ** 31
+    return torch.from_numpy(acc.astype(np.int32)).cuda()
+
+
+def check_keyswitch() -> int:
+    """The key-switch kernel alone against keyswitch_ref, byte-equal, at
+    PARAMS_SMALL and PARAMS_110 for every B of KS_CHECK: the arm the plan
+    takes, then each arm forced, on random digits, on digits that are all
+    zero and on digits that are all nonzero."""
+    from tfhe_tpu_torch.ops import cmux
+    from tfhe_tpu_torch.params import PARAMS_SMALL, PARAMS_110
+    rng = np.random.RandomState(11)
+    err = 0
+    for params, label in ((PARAMS_SMALL, "PARAMS_SMALL"), (PARAMS_110, "PARAMS_110")):
+        C = -(-(params.n + 1) // 128) * 128
+        planes = params.ks_t * (params.ks_base - 1)
+        tks = torch.from_numpy(rng.randint(-128, 128, size=(planes, params.N, 4 * C))
+                               .astype(np.int8)).cuda()
+        for B in KS_CHECK:
+            for kind in ("random", "zero", "full"):
+                acc_t = ks_inputs(params, B, rng, kind)
+                want = cmux.keyswitch_ref(acc_t, tks, params)
+                acc = cmux._acc_rows(acc_t, params)
+                got = {
+                    "planned arm": cmux.keyswitch(acc_t, tks, params),
+                    "gather arm": cmux._launch_keyswitch(
+                        acc, tks, params, plan=(0, cmux.gather_split(B, params.N))),
+                    "tensor-core arm": cmux._launch_keyswitch(
+                        acc, tks, params, plan=(1, cmux.mma_split(B, params.N, C))),
+                }
+                for arm, out in got.items():
+                    err = max(err, expect_equal(f"keyswitch {label} B={B} {kind} digits, {arm}",
+                                                out, want))
+                if kind != "random":
+                    count = 0 if kind == "zero" else params.N * params.ks_t
+                    if not (want[1][1] == count).all():
+                        raise AssertionError(f"keyswitch {label} {kind}: nonzero-digit count")
+        log(f"[kernels] keyswitch {label} B={list(KS_CHECK)}, planned arm and both arms forced, "
+            f"random / all-zero / all-nonzero digits: byte-equal to keyswitch_ref "
+            f"(max |err| {err})")
+    return err
+
+
+def sweep_keyswitch(sk, acc_rot, smi: str) -> dict:
+    """The key switch at PARAMS_110 on the reference's table and a really
+    rotated accumulator, over KS_SWEEP: the kernel (planned arm, and each arm
+    forced), the plain version, its bound, and the library's way: one
+    torch._int_mm on a prebuilt one-hot matrix, and the whole
+    core.bootstrap.key_switch route (one-hot construction, product,
+    recombine). Kernel and library in turns: kernel, library, route, kernel."""
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
+    tks = cloud.ks_table_perm
+    C = tks.shape[-1] // 4
+    rows = {}
+    for B in KS_SWEEP:
+        acc_t = acc_rot[:, :, :B].contiguous()
+        acc = cmux._acc_rows(acc_t, params)
+        want = cmux.keyswitch_ref(acc_t, tks, params)
+        err = expect_equal(f"keyswitch PARAMS_110 (reference keys) B={B}",
+                           cmux.keyswitch(acc_t, tks, params), want)
+        a_ext, b_ext = bs.sample_extract(acc_t.permute(2, 0, 1), params)
+        onehot = bs.ks_onehot(a_ext, params)
+        rows_p = max(32, -(-B // 8) * 8)
+        onehot_p = torch.cat([onehot, onehot.new_zeros((rows_p - B, onehot.shape[1]))]).contiguous()
+        cv = torch.zeros(B, dtype=torch.float32, device="cuda")
+        reps = 20
+        k1 = cuda_ms(lambda: cmux.keyswitch(acc_t, tks, params), reps)
+        lib = cuda_ms(lambda: torch._int_mm(onehot_p, cloud.ks_table), reps)
+        route = cuda_ms(lambda: bs.key_switch(a_ext, b_ext, cloud.ks_table, cv, params), reps)
+        k2 = cuda_ms(lambda: cmux.keyswitch(acc_t, tks, params), reps)
+        gather = cuda_ms(lambda: cmux._launch_keyswitch(
+            acc, tks, params, plan=(0, cmux.gather_split(B, params.N))), reps)
+        mma = cuda_ms(lambda: cmux._launch_keyswitch(
+            acc, tks, params, plan=(1, cmux.mma_split(B, params.N, C))), reps)
+        plain = cuda_ms(lambda: cmux.keyswitch_ref(acc_t, tks, params), 5)
+        rows[B] = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": plain,
+                   **bound(*keyswitch_work(acc_t, tks, params, want)), "library_ms": lib,
+                   "library_route_ms": route, "gather_ms": gather, "mma_ms": mma}
+        r = rows[B]
+        log(f"[kernels] keyswitch sweep PARAMS_110 B={B}: kernel {k1:.4f} / {k2:.4f} ms "
+            f"(gather arm {gather:.4f}, tensor-core arm {mma:.4f}), torch._int_mm {lib:.4f} ms, "
+            f"key_switch route {route:.4f} ms, plain {plain:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']} ({smi})")
+    return rows
+
+
 def phase_kernels(sk, x, smi: str) -> dict:
-    """K1, K3 and K4 at the PARAMS_110 batch-256 shapes: byte-equal to the
-    plain versions on real keys and a real accumulator, and timed; then K5
+    """K1-K4 at the PARAMS_110 batch-256 shapes: byte-equal to the plain
+    versions on real keys and a real accumulator, timed, each beside its
+    bound; the key switch alone (check_keyswitch, sweep_keyswitch); then K5
     (phase_k5)."""
     from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.ops import cmux
     params, cloud = sk.params, sk.cloud
     check_small_kernels()
+    check_keyswitch()
     acc, bara = bs._prepare_acc(x, gates.MU, cloud)
-    acc_t, bara_t = acc.permute(1, 2, 0), bara.T
+    acc_t, bara_t = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
     bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
-    dec = bs.gadget_decompose(acc, params).permute(1, 2, 0)         # [kpl, N, B]
+    dec = bs.gadget_decompose(acc, params).permute(1, 2, 0).contiguous()     # [kpl, N, B]
+    acc_rot = cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params)
+    ks_rows = sweep_keyswitch(sk, acc_rot, smi)
+    ks_out = cmux.keyswitch_ref(acc_rot, tks, params)
+    ks_bytes, ks_seconds = keyswitch_work(acc_rot, tks, params, ks_out)
+    n, B = params.n, BATCH
+    one_step = nbytes(bk[0], sh[0])
+    # name: (kernel, plain, repeats, bytes moved, seconds of operations)
     calls = {
         "cmux_delta": (lambda: cmux.cmux_delta(dec, bk[0], sh[0], params),
-                       lambda: cmux.cmux_delta_ref(dec, bk[0], sh[0], params)),
+                       lambda: cmux.cmux_delta_ref(dec, bk[0], sh[0], params), 20,
+                       nbytes(dec, acc_t) + one_step, cmux_seconds(params, B, 1)),
+        "blind_rotate_step": (
+            lambda: cmux.blind_rotate_step(acc_t, bara_t[:1], bk[0], sh[0], params),
+            lambda: cmux.blind_rotate_step_ref(acc_t, bara_t[:1], bk[0], sh[0], params), 20,
+            2 * nbytes(acc_t) + nbytes(bara_t[:1]) + one_step, cmux_seconds(params, B, 1)),
         "blind_rotate": (lambda: cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params),
-                         lambda: cmux.blind_rotate_fused_ref(acc_t, bara_t, bk, sh, params)),
+                         lambda: cmux.blind_rotate_fused_ref(acc_t, bara_t, bk, sh, params), 3,
+                         2 * nbytes(acc_t) + nbytes(bara_t, bk, sh), cmux_seconds(params, B, n)),
         "blind_rotate_ks": (
             lambda: cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params),
-            lambda: cmux.blind_rotate_ks_fused_ref(acc_t, bara_t, bk, sh, tks, params)),
+            lambda: cmux.blind_rotate_ks_fused_ref(acc_t, bara_t, bk, sh, tks, params), 3,
+            nbytes(acc_t, bara_t, bk, sh) + ks_bytes, cmux_seconds(params, B, n) + ks_seconds),
     }
     out = {}
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, reps, moved, seconds) in calls.items():
         err = expect_equal(f"{name} 110 B={BATCH}", kern(), plain())
-        reps = 20 if name == "cmux_delta" else 3
         ms = cuda_ms(kern, reps)
-        plain_ms = cuda_ms(plain, 1 if name != "cmux_delta" else reps)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        plain_ms = cuda_ms(plain, reps if reps > 3 else 1)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(moved, seconds), "library_ms": None, "shape": f"PARAMS_110 B={BATCH}"}
         log(f"[kernels] {name} PARAMS_110 B={BATCH}: byte-equal (max |err| {err}), "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {out[name]['bound_ms']:.4f} ms "
+            f"by {out[name]['bound_by']} ({smi})")
+    out["keyswitch"] = {**ks_rows[BATCH], "shape": f"PARAMS_110 B={BATCH}",
+                        "by_batch": {str(b): r for b, r in ks_rows.items()}}
+    check_large_batch(sk, x)
     out["blind_rotate_fused_packed"] = phase_k5(sk, x, smi)
     return out
 
 
+def check_large_batch(sk, x) -> None:
+    """K3 and K4 at the first batch the bootstrap gives them,
+    SMALL_BATCH_MAX + 1 (several waves of blocks), byte-equal to their plain
+    versions. K4's plain version is keyswitch_ref of K3's plain accumulator
+    (cmux.blind_rotate_ks_fused_ref), which is computed once here."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.core.lwe import lwe_concat
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
+    big = bs.SMALL_BATCH_MAX + 1
+    xs = lwe_concat([x] * -(-big // x.b.shape[0]))[:big]
+    acc, bara = bs._prepare_acc(xs, gates.MU, cloud)
+    acc_t, bara_t = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
+    bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
+    t0 = time.time()
+    plain_acc = cmux.blind_rotate_fused_ref(acc_t, bara_t, bk, sh, params)
+    err = expect_equal(f"blind_rotate 110 B={big}",
+                       cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params), plain_acc)
+    err = max(err, expect_equal(f"blind_rotate_ks 110 B={big}",
+                                cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params),
+                                cmux.keyswitch_ref(plain_acc, tks, params)))
+    torch.cuda.synchronize()
+    log(f"[kernels] blind_rotate and blind_rotate_ks PARAMS_110 B={big} (one above "
+        f"SMALL_BATCH_MAX, the first batch they are given): byte-equal to plain "
+        f"(max |err| {err}; {time.time() - t0:.1f} s)")
+
+
 def phase_k5(sk, x, smi: str) -> dict:
-    """K5 at PARAMS_110 on real keys: byte-equal at B = 1 and 64, its time at
-    B = 1 (the MAJ stages of a comparison) beside the plain version's, and
-    the sweep of B beside K3."""
+    """K5 at PARAMS_110 on real keys: byte-equal at B = 1, 64, at the first
+    batch of each cluster size's second wave and at the gate path's batch of
+    256 (two waves of the cluster of 2), its time at B = 1 (the MAJ stages of
+    a comparison) beside the plain version's and its bound, and the sweep of B
+    beside K3, with each form of the kernel forced up to two waves of the
+    largest."""
     from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.core.lwe import lwe_concat
     from tfhe_tpu_torch.ops import cmux, cmux_packed as cp
     params, cloud = sk.params, sk.cloud
     bk, sh, tks = cloud.bk_ntt, cloud.bk_ntt_shoup, cloud.ks_table_perm
+    forms = {"4 CTAs": 4, "2 CTAs": 2}
+    waves = {name: cp.samples_in_flight(params.N, cluster, torch.cuda.current_device())
+             for name, cluster in forms.items()}
+    log(f"[kernels] K5 samples in flight at PARAMS_110, by CTAs a sample: {waves}")
     err = 0
-    for B in (1, 64):
+    for B in (1, 64, waves["4 CTAs"] + 1, waves["2 CTAs"] + 1, BATCH):
         acc, bara = bs._prepare_acc(x[:B], gates.MU, cloud)
         err = max(err, check_k5(params, acc, bara.T, bk, sh, tks, "PARAMS_110 (reference keys)"))
     acc, bara = bs._prepare_acc(x[:1], gates.MU, cloud)
@@ -257,22 +496,36 @@ def phase_k5(sk, x, smi: str) -> dict:
     ms = cuda_ms(lambda: cp.blind_rotate_fused_packed(acc_p, bara_t, bk, sh, params), 5)
     plain_ms = cuda_ms(lambda: cp.blind_rotate_fused_packed_ref(acc_p, bara_t, bk, sh, params), 1)
     ks_ms = cuda_ms(lambda: cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks, params), 5)
-    log(f"[kernels] blind_rotate_fused_packed PARAMS_110 B=1: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms; with the key switch {ks_ms:.3f} ms ({smi})")
-    xs = lwe_concat([x, x[:max(SWEEP) - x.b.shape[0]]])
+    limit = bound(2 * nbytes(acc_p) + nbytes(bara_t, bk, sh), cmux_seconds(params, 1, params.n))
+    log(f"[kernels] blind_rotate_fused_packed PARAMS_110 B=1: kernel {ms:.3f} ms "
+        f"({ms / params.n * 1e3:.3f} us per CMux step), plain {plain_ms:.3f} ms, bound "
+        f"{limit['bound_ms']:.4f} ms by {limit['bound_by']}; with the key switch {ks_ms:.3f} ms "
+        f"({smi})")
+    xs = lwe_concat([x] * -(-max(SWEEP) // x.b.shape[0]))
     for B in SWEEP:
         acc, bara = bs._prepare_acc(xs[:B], gates.MU, cloud)
         acc_p, acc_t, bara_t = packed(acc), acc.permute(1, 2, 0), bara.T
+        bara_b = bara.contiguous()
         k5 = cuda_ms(lambda: cp.blind_rotate_fused_packed(acc_p, bara_t, bk, sh, params), 3)
+        forced = ""
+        if B <= 2 * waves["2 CTAs"]:
+            scratch = acc_p.clone()
+
+            def form_ms(cluster):
+                return cuda_ms(lambda: cp._launch_packed(scratch, bara_b, bk, sh, params,
+                                                         cluster=cluster), 3)
+            forced = " (" + ", ".join(f"{name} {form_ms(cluster):.3f}"
+                                      for name, cluster in forms.items()) + ")"
         k3 = cuda_ms(lambda: cmux.blind_rotate_fused(acc_t, bara_t, cloud.bk_rows,
                                                      cloud.bk_rows_shoup, params), 3)
         k5ks = cuda_ms(lambda: cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks,
                                                                params), 3)
         k4 = cuda_ms(lambda: cmux.blind_rotate_ks_fused(acc_t, bara_t, cloud.bk_rows,
                                                         cloud.bk_rows_shoup, tks, params), 3)
-        log(f"[kernels] sweep PARAMS_110 B={B}: K5 {k5:.3f} ms, K3 {k3:.3f} ms; "
+        log(f"[kernels] sweep PARAMS_110 B={B}: K5 {k5:.3f} ms{forced}, K3 {k3:.3f} ms; "
             f"K5 + key switch {k5ks:.3f} ms, K4 {k4:.3f} ms ({smi})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None,
+            "us_per_step": ms / params.n * 1e3, "shape": "PARAMS_110 B=1"}
 
 
 def _hash(ct) -> str:
@@ -280,33 +533,43 @@ def _hash(ct) -> str:
                           + ct.b.cpu().numpy().astype("<i4").tobytes()).hexdigest()
 
 
-def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
-    """The main path: batch-256 AND on the card, fused and split routes,
-    plus the golden 8-input AND. Returns the launch counts of this phase."""
+def check_and(sk, label: str, x, y, want_bits) -> None:
+    """AND of a batch through the fused and the split route: decrypts to
+    a & b, finite cv of the right shape, both routes the same samples."""
     import tfhe_tpu_torch as tt
     from tfhe_tpu_torch import config, gates
+    fused = gates.AND(x, y, sk.cloud)
+    with config.overrides(TFHE_TPU_FUSEKS="0"):
+        split = gates.AND(x, y, sk.cloud)
+    got = tt.decrypt_bits(sk, fused)
+    B = x.b.shape[0]
+    if not np.array_equal(got, want_bits):
+        raise AssertionError(f"{label}: AND does not decrypt to a & b")
+    if fused.a.shape != (B, sk.params.n) or not torch.isfinite(fused.cv).all():
+        raise AssertionError(f"{label}: AND output has the wrong shape or a non-finite cv")
+    if not (torch.equal(fused.a, split.a) and torch.equal(fused.b, split.b)):
+        raise AssertionError(f"{label}: fused and split routes differ")
+    log(f"[main] AND PARAMS_110 B={B}: decrypts to a & b ({int(got.sum())} ones); fused route "
+        f"== split route (blind rotate, then the int8 matmul key switch): a, b identical")
+
+
+def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
+    """The gate path on the card: the batch-256 AND, fused and split routes,
+    and the golden 8-input AND; then a batch one above SMALL_BATCH_MAX, which
+    takes the one-block-per-sample kernels. Returns each run's launch counts."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.core.lwe import lwe_concat
     from tfhe_tpu_torch.ops import cmux
     cloud = sk.cloud
     cmux.reset_launches()
-    fused = gates.AND(x, y, cloud)
-    with config.overrides(TFHE_TPU_FUSEKS="0"):
-        split = gates.AND(x, y, cloud)
+    check_and(sk, "batch 256", x, y, bits_x & bits_y)
     gx, gy = golden_in
     g_out = gates.AND(gx, gy, cloud)
     torch.cuda.synchronize()
     launches = dict(cmux.LAUNCHES)
-    log(f"[main] launch counts: {launches}")
-
-    got = tt.decrypt_bits(sk, fused)
-    if not np.array_equal(got, bits_x & bits_y):
-        raise AssertionError("batch-256 AND does not decrypt to a & b")
-    if fused.a.shape != (BATCH, sk.params.n) or not torch.isfinite(fused.cv).all():
-        raise AssertionError("AND output has the wrong shape or a non-finite cv")
-    log(f"[main] AND PARAMS_110 B={BATCH}: decrypts to a & b ({int(got.sum())} ones)")
-    if not (torch.equal(fused.a, split.a) and torch.equal(fused.b, split.b)):
-        raise AssertionError("fused and split routes differ")
-    log("[main] fused route (blind_rotate_ks kernel) == split route "
-        "(blind_rotate kernel + int8 matmul key switch): a, b identical")
+    log(f"[main] launch counts, AND B={BATCH} and the golden AND: {launches}")
     with open(GOLDEN) as f:
         golden = json.load(f)
     want_bits = np.array(golden["x_bits"]) & np.array(golden["y_bits"])
@@ -316,9 +579,24 @@ def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     if digest != golden["sha256"]:
         raise AssertionError(f"golden AND SHA-256 {digest} != {golden['sha256']}")
     log(f"[main] golden 8-input AND matches tfhe_tpu's SHA-256 {digest}")
-    if launches["blind_rotate_ks_fused"] < 1 or launches["blind_rotate_fused"] < 1:
-        raise AssertionError("the main path did not launch the blind-rotate kernels")
-    return launches
+    small = ("blind_rotate_fused_packed", "keyswitch")
+    large = ("blind_rotate_ks_fused", "blind_rotate_fused", "keyswitch")
+    for name in small + (() if BATCH <= bs.SMALL_BATCH_MAX else large):
+        if launches[name] < 1:
+            raise AssertionError(f"the batch-{BATCH} AND and the golden AND did not launch {name}")
+
+    big = bs.SMALL_BATCH_MAX + 1
+    reps = -(-big // BATCH)
+    xb, yb = lwe_concat([x] * reps)[:big], lwe_concat([y] * reps)[:big]
+    cmux.reset_launches()
+    check_and(sk, f"batch {big}", xb, yb, np.tile(bits_x & bits_y, reps)[:big])
+    torch.cuda.synchronize()
+    launches_big = dict(cmux.LAUNCHES)
+    log(f"[main] launch counts, AND B={big} (one above SMALL_BATCH_MAX): {launches_big}")
+    for name in large:
+        if launches_big[name] < 1:
+            raise AssertionError(f"the batch-{big} AND did not launch {name}")
+    return {"and": launches, "large_batch": launches_big}
 
 
 def plain_and(x, y, cloud):
@@ -389,11 +667,11 @@ def expect_plaintext(sk, label: str, out, truth, a, b, nbits: int) -> np.ndarray
     return got
 
 
-def phase_circuits(sk, smi: str) -> dict:
+def phase_circuits(sk, smi: str) -> tuple:
     """The serial-circuit path: 16-bit CipherInt ops at one number per batch,
     PARAMS_110, the reference's keys on the card. Each op runs twice (the
     first run puts its index plans on the card) and the second is timed.
-    Returns the launch counts of this phase."""
+    Returns the launch counts of this phase and the two operands."""
     from tfhe_tpu_torch import ref_keygen
     from tfhe_tpu_torch.cipher import CipherInt
     from tfhe_tpu_torch.core.lwe import LweCiphertext
@@ -439,7 +717,36 @@ def phase_circuits(sk, smi: str) -> dict:
     torch.cuda.synchronize()
     launches = dict(cmux.LAUNCHES)
     log(f"[circuits] launch counts: {launches}")
-    return launches
+    if launches["keyswitch"] < 1:
+        raise AssertionError("no stage of the circuits went through the key-switch kernel")
+    return launches, x, y
+
+
+def phase_arms(x, y, smi: str) -> None:
+    """What the key switch's gather arm is worth end to end: add16 (stages of
+    2 samples) and div16 (stages of 1, 2, 16 and 32) with the planned arms
+    and with the tensor-core arm forced at every batch (KS_GATHER_MAX = 0), in
+    turns; wall ms, the least and the median of each turn."""
+    from tfhe_tpu_torch.ops import cmux
+    planned = cmux.KS_GATHER_MAX
+    try:
+        for name, call, reps in (("add16", lambda: x + y, 8), ("div16", lambda: x / y, 3)):
+            for turn in (1, 2):
+                for label, limit in (("planned arms", planned), ("tensor-core arm only", 0)):
+                    cmux.KS_GATHER_MAX = limit
+                    times = []
+                    for _ in range(reps + 1):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        call()
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    times = sorted(times[1:])
+                    log(f"[circuits] {name} turn {turn}, key switch {label}: least "
+                        f"{times[0]:.3f} ms, median {times[len(times) // 2]:.3f} ms of {reps} "
+                        f"({smi})")
+    finally:
+        cmux.KS_GATHER_MAX = planned
 
 
 def phase_circuits_plain() -> None:
@@ -469,6 +776,43 @@ def phase_circuits_plain() -> None:
         f"the card equals the plain route byte for byte ({time.time() - t0:.1f} s)")
 
 
+def phase_profile(x, y, smi: str) -> None:
+    """One 16-bit add under torch.profiler: device time by kernel, and the
+    share of the device's span (first kernel start to last kernel end) in
+    which no kernel ran."""
+    from torch.profiler import ProfilerActivity, profile
+    _ = x + y                                   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _ = x + y
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (ev.time_range.end - ev.time_range.start)
+    if not spans:
+        log("[profile] torch.profiler recorded no device event: idle share not measured")
+        return
+    spans.sort()
+    busy, edge = 0.0, spans[0][0]
+    for start, end in spans:
+        if end > edge:
+            busy += end - max(start, edge)
+            edge = end
+    span = spans[-1][1] - spans[0][0]
+    log(f"[profile] add16 PARAMS_110, one number: wall {wall_ms:.3f} ms under the profiler, device "
+        f"span {span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f} % "
+        f"({len(spans)} device events; {smi})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, us in top[:6]:
+        log(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+    log(f"[profile]   {sum(us for _, us in top[6:]) / 1e3:9.3f} ms  every other kernel "
+        f"({len(top) - 6} names)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -484,11 +828,12 @@ def main() -> int:
     phase_build()
 
     t0 = time.time()
-    sk = tt.keygen_reference(tt.PARAMS_110)
+    sk = tt.keygen_reference(tt.PARAMS_110)       # the cloud key is built on the card
+    if sk.cloud.bk_ntt.device.type != "cuda":
+        raise AssertionError("keygen_reference did not put the cloud key on the card")
     with open(GOLDEN) as f:
         golden = json.load(f)
     ga, gb = ref_keygen.encrypt_bits(sk.lwe_key, golden["x_bits"] + golden["y_bits"])
-    sk.cloud = sk.cloud.to("cuda")
     log(f"[main] reference keys at PARAMS_110 on the card in {time.time() - t0:.3f} s")
 
     def ct(a, b):
@@ -508,23 +853,53 @@ def main() -> int:
     timed = phase_kernels(sk, x, dev["smi"])
     launches = phase_main(sk, golden_in, x, y, bits_x, bits_y)
     phase_timing(sk, x, y, bits_x & bits_y, dev["smi"])
-    circuit_launches = phase_circuits(sk, dev["smi"])
+    circuit_launches, cx, cy = phase_circuits(sk, dev["smi"])
+    phase_arms(cx, cy, dev["smi"])
     phase_circuits_plain()
+    phase_profile(cx, cy, dev["smi"])
+
+    def counted(counter: str) -> dict:
+        by_path = {"and": launches["and"][counter], "large_batch": launches["large_batch"][counter],
+                   "circuits": circuit_launches[counter]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    def on_paths(counter: str) -> dict:
+        out = counted(counter)
+        if out["launches"] < 1:
+            raise AssertionError(f"no path launched {counter}")
+        return out
+
+    def off_paths(counter: str) -> dict:
+        out = counted(counter)
+        if out["launches"] != 0:
+            raise AssertionError(f"{counter} is listed as off every path, but the paths "
+                                 f"launched it: {out['launches_by_path']}")
+        return out
 
     kernels = [
         {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:533",
-         "launches": launches["blind_rotate_fused"], **timed["blind_rotate"]},
+         "replaces": "tfhe_tpu/ops/cmux_pallas.py:555", **on_paths("blind_rotate_fused"),
+         **timed["blind_rotate"]},
         {"name": "blind_rotate_ks", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:485",
-         "launches": launches["blind_rotate_ks_fused"], **timed["blind_rotate_ks"]},
+         "replaces": "tfhe_tpu/ops/cmux_pallas.py:505", **on_paths("blind_rotate_ks_fused"),
+         **timed["blind_rotate_ks"]},
         {"name": "blind_rotate_fused_packed", "route": "cuda", "source": SOURCE_SMALL,
-         "replaces": "tfhe_tpu/ops/cmux_pallas_packed.py:259",
-         "launches": circuit_launches["blind_rotate_fused_packed"],
-         **timed["blind_rotate_fused_packed"]},
+         "replaces": "tfhe_tpu/ops/cmux_pallas_packed.py:283",
+         **on_paths("blind_rotate_fused_packed"), **timed["blind_rotate_fused_packed"]},
+        {"name": "keyswitch", "route": "cuda", "source": SOURCE,
+         "replaces": "tfhe_tpu/ops/cmux_pallas.py:398", **on_paths("keyswitch"),
+         **timed["keyswitch"]},
     ]
-    off_path = [{"name": "cmux_delta", "route": "cuda", "source": SOURCE,
-                 "replaces": "tfhe_tpu/ops/cmux_pallas.py:575", **timed["cmux_delta"]}]
+    # kernels no path of the port launches (nor of tfhe_tpu's bootstrap): built,
+    # held against their plain versions and timed all the same
+    off_path = [
+        {"name": "blind_rotate_step", "route": "cuda", "source": SOURCE,
+         "replaces": "tfhe_tpu/ops/cmux_pallas.py:321", **off_paths("blind_rotate_step"),
+         **timed["blind_rotate_step"]},
+        {"name": "cmux_delta", "route": "cuda", "source": SOURCE,
+         "replaces": "tfhe_tpu/ops/cmux_pallas.py:584", **off_paths("cmux_delta"),
+         **timed["cmux_delta"]},
+    ]
     log(json.dumps({"kernels": kernels, "off_path": off_path}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                            "count": torch.cuda.device_count()}}))

@@ -12,6 +12,7 @@ import torch
 
 import tfhe_tpu_torch as tt
 from tfhe_tpu_torch import arith, config, gates, ntt
+from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core.keys import bk_rows_layout
 from tfhe_tpu_torch.ops import cmux, cmux_packed
 
@@ -68,14 +69,61 @@ def test_kernels_match_plain(cuda, params):
         assert got.dtype == want.dtype and torch.equal(got, want)
     assert cmux.LAUNCHES == {"cmux_delta": 1, "blind_rotate_step": 1,
                              "blind_rotate_fused": 1, "blind_rotate_ks_fused": 1,
-                             "blind_rotate_fused_packed": 0}
+                             "blind_rotate_fused_packed": 0, "keyswitch": 1}
+
+
+def _ks_inputs(params, B, rng, kind, device):
+    """A rotated accumulator int32[2, N, B] and a random limb table; `kind`
+    "zero" makes every digit of every coefficient zero, "full" none."""
+    N = params.N
+    acc = rng.randint(-2 ** 31, 2 ** 31, size=(2, N, B)).astype(np.int64)
+    if kind == "zero":
+        acc[0] = params.ks_prec_offset
+        acc[0, 0] = -params.ks_prec_offset
+    elif kind == "full":
+        digs = rng.randint(1, 4, size=(N, B, params.ks_t))
+        u = sum(digs[..., j].astype(np.int64) << (32 - (j + 1) * params.ks_basebit)
+                for j in range(params.ks_t)) + 1
+        x = u - params.ks_prec_offset
+        x[1:] = -x[1:]
+        acc[0] = (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+    C = -(-(params.n + 1) // 128) * 128
+    tks = rng.randint(-128, 128, size=(params.ks_t * (params.ks_base - 1), N, 4 * C))
+    return (torch.from_numpy(acc.astype(np.int32)).to(device),
+            torch.from_numpy(tks.astype(np.int8)).to(device))
 
 
 @pytest.mark.parametrize("params", [tt.PARAMS_SMALL, tt.PARAMS_110], ids=["small", "110"])
-@pytest.mark.parametrize("B", [1, 2, 3, 64])
+@pytest.mark.parametrize("B", [1, 2, 3, 33, 64, 256])
+def test_keyswitch_matches_plain(cuda, params, B):
+    """The key-switch kernel byte-equal to keyswitch_ref: the arm the plan
+    takes at this B, then both arms forced, on random digits, on all-zero
+    digits and on all-nonzero digits."""
+    rng = np.random.RandomState(B)
+    for kind in ("random", "zero", "full"):
+        acc_t, tks = _ks_inputs(params, B, rng, kind, cuda)
+        want = cmux.keyswitch_ref(acc_t, tks, params)
+        cmux.reset_launches()
+        got = [cmux.keyswitch(acc_t, tks, params)]
+        acc = cmux._acc_rows(acc_t, params)
+        for plan in ((0, 8), (1, 2)):      # (arm, ranges of N): gather, tensor cores
+            got.append(cmux._launch_keyswitch(acc, tks, params, plan=plan))
+        torch.cuda.synchronize()
+        assert cmux.LAUNCHES["keyswitch"] == 3
+        for r, ext in got:
+            assert torch.equal(r, want[0]) and torch.equal(ext, want[1]), kind
+        if kind != "random":
+            assert (want[1][1] == (0 if kind == "zero" else params.N * params.ks_t)).all()
+
+
+@pytest.mark.parametrize("params", [tt.PARAMS_SMALL, tt.PARAMS_110], ids=["small", "110"])
+@pytest.mark.parametrize("B", [1, 2, 3, 30, 31, 64, 66, 67, 132, 133, 256, "max", "max+1"])
 def test_k5_matches_plain(cuda, params, B):
     """K5, alone and chained with the key switch, byte-equal to its plain
-    versions, each launch counted; n is cut to 4 steps at PARAMS_110."""
+    versions, each launch counted; n is cut to 4 steps at PARAMS_110. "max" is
+    the largest batch the bootstrap routes to K5."""
+    if isinstance(B, str):
+        B = bs.SMALL_BATCH_MAX + (B == "max+1")
     rng = np.random.RandomState(B)
     n = min(params.n, 4 if params.N == 1024 else params.n)
     bk, sh = _random_bk(params, n, rng, cuda, layout="ntt")
@@ -94,6 +142,19 @@ def test_k5_matches_plain(cuda, params, B):
     for g, w in ((got, want), (r, r2), (ext, ext2)):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert cmux.LAUNCHES["blind_rotate_fused_packed"] == 2
+    assert cmux.LAUNCHES["keyswitch"] == 1
+
+
+def test_small_cluster_follows_what_the_card_holds(cuda):
+    """A batch that fits one wave of 4-CTA clusters gets them, a larger one
+    clusters of 2, of which the card holds more at once."""
+    N, dev = tt.PARAMS_110.N, torch.cuda.current_device()
+    four, two = (cmux_packed.samples_in_flight(N, c, dev) for c in (4, 2))
+    assert 1 <= four < two
+    assert cmux_packed.small_cluster(1, N, cuda) == 4
+    assert cmux_packed.small_cluster(four, N, cuda) == 4
+    assert cmux_packed.small_cluster(four + 1, N, cuda) == 2
+    assert cmux_packed.small_cluster(two + 1, N, cuda) == 2
 
 
 def test_circuits_on_card_match_cpu(cuda):

@@ -13,9 +13,10 @@ and take these plain pieces for CPU tensors. Every route gives the same bits:
 - split (default on the CPU): a blind-rotate wrapper, then
   ``sample_extract`` and the one-hot int8 matmul ``key_switch``;
 - a flat batch of at most ``SMALL_BATCH_MAX`` samples (every stage of a
-  serial circuit) takes the small-batch blind rotate of
-  ``ops.cmux_packed`` (K5, a cluster of two CTAs per sample), a larger one
-  the one-block-per-sample kernels of ``ops.cmux`` (K3/K4).
+  serial circuit, and the gate batches up to that size) takes the
+  small-batch blind rotate of ``ops.cmux_packed`` (K5, a cluster of four or
+  two CTAs per sample), a larger one the one-block-per-sample kernels of
+  ``ops.cmux`` (K3/K4).
 """
 from __future__ import annotations
 
@@ -29,10 +30,14 @@ from ..ops import cmux, cmux_packed
 from .lwe import LweCiphertext
 
 # Largest flat batch that takes the small-batch blind rotate. Measured on an
-# H100 (132 SMs, 700 W) at PARAMS_110: K5 beats K3 at every B up to 132, the
-# most that one wave holds (two-CTA clusters, two CTAs per SM), and loses at
-# 264, where it needs a second wave (PERF.md, "Findings").
-SMALL_BATCH_MAX = 132
+# H100 (132 SMs, 700 W) at PARAMS_110 by chip_smoke.py's sweep: K5 beats K3 at
+# every B measured, 1 to 2048, by a ratio that does not close (B = 528: 14.4
+# against 24.3 ms; 1056: 28.5 against 47.6; 2048: 56.3 against 93.6): beyond
+# one wave K5 works on 132 samples at once in 3.6-3.8 ms, K3 on 132 in 6.0-7.9
+# ms. No crossover was found, so the constant is the top of what was measured;
+# a larger batch keeps the one-block-per-sample kernels until they are
+# redesigned (PERF.md, "Findings"; ROADMAP.md).
+SMALL_BATCH_MAX = 2048
 
 
 # ------------------------------------------------------------------ pieces
@@ -204,8 +209,8 @@ def _bootstrap_variance(params: TfheParams) -> float:
     return float(n * ((k + 1) * l * N * (Bg / 2.0) ** 2 * var_bk + (1 + k * N) * eps2))
 
 
-def _small(x: LweCiphertext) -> bool:
-    return x.b.shape[0] <= SMALL_BATCH_MAX
+def _small(x: LweCiphertext, params: TfheParams) -> bool:
+    return x.b.shape[0] <= SMALL_BATCH_MAX and params.N <= cmux_packed.N_MAX
 
 
 def bootstrap_woks(x: LweCiphertext, mu, cloud):
@@ -216,7 +221,7 @@ def bootstrap_woks(x: LweCiphertext, mu, cloud):
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
     k1, B, N = params.k + 1, x.b.shape[0], params.N
-    if _small(x):
+    if _small(x, params):
         acc_p = acc.transpose(0, 1).reshape(k1 * B, N // cmux_packed.LANE, cmux_packed.LANE)
         out_p = cmux_packed.blind_rotate_fused_packed(acc_p, bara.T, cloud.bk_ntt,
                                                       cloud.bk_ntt_shoup, params)
@@ -242,7 +247,7 @@ def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud) -> LweCiphertext:
     """bootstrap() through a blind rotate, extract and key switch in one wrapper."""
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
-    if _small(x):
+    if _small(x, params):
         r, ext = cmux_packed.blind_rotate_packed_ks_fused(
             acc.permute(1, 2, 0), bara.T, cloud.bk_ntt, cloud.bk_ntt_shoup,
             cloud.ks_table_perm, params)

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..numeric import resolve_device
+
 
 @dataclass(frozen=True)
 class LweCiphertext:
@@ -106,15 +108,21 @@ def lwe_concat(cts, axis: int = 0) -> LweCiphertext:
 
 def noiseless_trivial(mu, n: int, batch_shape=(), device=None) -> LweCiphertext:
     """(0, mu) (ref lwe-functions.cu lweNoiselessTrivial). A Python or numpy
-    scalar mu is filled on `device`, with no host-to-device copy; a tensor
-    mu keeps its own device."""
+    scalar mu is filled on `device` (the card when None), with no
+    host-to-device copy; a tensor mu keeps its own device."""
     batch_shape = tuple(batch_shape)
     if isinstance(mu, torch.Tensor):
         b = mu.to(torch.int32).expand(batch_shape).clone()
-    elif np.ndim(mu) == 0:
+        return _trivial_of(b, n, batch_shape)
+    device = resolve_device(device)
+    if np.ndim(mu) == 0:
         b = torch.full(batch_shape, int(mu), dtype=torch.int32, device=device)
     else:
         b = torch.as_tensor(np.asarray(mu, np.int32), device=device).expand(batch_shape).clone()
+    return _trivial_of(b, n, batch_shape)
+
+
+def _trivial_of(b: torch.Tensor, n: int, batch_shape: tuple) -> LweCiphertext:
     return LweCiphertext(
         torch.zeros(batch_shape + (n,), dtype=torch.int32, device=b.device),
         b,

@@ -3,44 +3,62 @@
 // tfhe_tpu_torch/ops/cmux_packed.py).
 //
 // Replaces tfhe_tpu/ops/cmux_pallas_packed.py:blind_rotate_fused_packed
-// (:259, body _scan_kernel_packed :234 and _cmux_iter :183): all n CMux steps
-// of a blind rotate for the serial-circuit batches (B <= SMALL_BATCH_MAX in
-// core/bootstrap.py). It computes the same accumulator as blind_rotate_kernel
-// in cmux.cu, bit for bit. The TPU kernel's tile layout, roll ladder and
-// twiddle planes exist to fill 128-lane vector registers and are not carried
-// over: the rotation is index arithmetic and the transforms are the shared
-// butterfly loops of extern_product.cuh.
+// (:259, pallas_call :283, body _scan_kernel_packed :234 and _cmux_iter :183):
+// all n CMux steps of a blind rotate for the flat batches that
+// core/bootstrap.py routes here (B <= SMALL_BATCH_MAX). It computes the same
+// accumulator as blind_rotate_kernel in cmux.cu, bit for bit. The TPU
+// kernel's tile layout, roll ladder and twiddle planes exist to fill 128-lane
+// vector registers and are not carried over: the rotation is index arithmetic.
 //
-// Design: blind_rotate_kernel gives one block to a sample, so at B = 1 one SM
-// works and 131 idle. Here each sample gets a thread-block cluster of two
-// CTAs, one per CRT prime. CTA p computes the digits of X^a * acc - acc,
-// their 4 forward transforms mod p, the Shoup MAC against its prime's 32 KB
-// key slice bk_ntt[j, p] (plus its Shoup twin), and the 2 inverse
-// transforms: half the transforms of the one-block kernel. The CRT lift needs
-// both residues of a coefficient, so each CTA writes its residues to shared
-// memory, the cluster synchronises, and each reads its peer's residues
-// through distributed shared memory (map_shared_rank). Both CTAs keep the
-// whole accumulator (8 KB at N = 1024), because the next step's X^a rotation
-// reads all of it, and both add the same delta. The residue buffer is double
-// buffered by step parity, so one cluster barrier per step suffices: a CTA
-// writes buffer j & 1 again only at step j + 2, after the barrier of step
-// j + 1, which its peer reaches only once it has read step j's residues.
+// What bounds it on an H100: latency, not throughput. A sample's 500 CMux
+// steps are a dependent chain; the card could stream the 65.5 MB key in
+// 0.02 ms and do one sample's arithmetic in 0.015 ms, the kernel takes about
+// 1.9 ms at B = 1. A step is a chain of short phases (a few butterflies a
+// thread) behind barriers, on one to four SMs per sample. The design cuts the
+// chain's length and the work in it:
 //
-// A cluster of 2 rather than 4 (prime x output polynomial): the split by
-// prime needs no sharing of the transformed digit rows, only the final
-// residues, and at B = 64 its 128 CTAs of N/2 threads and 40 KB of shared
-// memory fill one wave with one CTA per SM of the H100's 132.
+// - A cluster of 4 CTAs per sample (prime x polynomial; batches that fit one
+//   wave of such clusters) or of 2 (one per prime; larger batches):
+//   ops/cmux_packed.py small_cluster chooses. With 4, CTA (p, h) keeps acc[h],
+//   forward-transforms the two digit rows of X^a * acc[h] - acc[h] mod p,
+//   sends them to CTA (p, 1-h), and computes output polynomial h: half the
+//   work of a CTA of the cluster of 2, for one more exchange a step.
+// - Transforms that keep three stages in registers: a forward pass loads 8
+//   values a thread, runs stages s0 .. s0+2 on them and stores them (10 stages
+//   at N = 1024: 3 passes, the last stage done by the MAC's threads on the 4
+//   neighbours they read anyway); the inverse runs two stages a pass on 4
+//   values a thread, so that every thread has work. 9 block barriers a step
+//   instead of about 44 (two primes in one block) or 22.
+// - Lazy reduction (Harvey butterflies): 7 operations a butterfly, not 11.
+// - N is a template parameter: every pass is unrolled, shifts and
+//   shared-memory offsets are immediates. The padded row layout (pad())
+//   keeps each pass's strided accesses to two-way bank conflicts.
+// - Twiddles (value and Shoup twin interleaved) are loaded into shared memory
+//   once, before the loop.
+// - In the cluster of 4 the next step's key rows (32 KB with the Shoup twins)
+//   are fetched by cp.async into a double buffer at the top of each step and
+//   the MAC reads shared memory. That buffer limits an SM to one CTA at
+//   N = 1024. The cluster of 2 serves the batches of more than one wave and
+//   goes without it: the MAC reads the key itself, which the batch's other
+//   CTAs keep in L2, and two CTAs share an SM (132 samples at once).
+// - The CTAs exchange digit rows and residues by st.async into each other's
+//   shared memory, completing on the receiver's mbarrier: the receiver waits
+//   for the bytes it expects. cooperative_groups' cluster.sync() compiles to
+//   a GPU-scope fence (MEMBAR.ALL.GPU) and an L1 invalidate (CCTL.IVALL) each
+//   time and is used only before the loop and after it. Buffers that another CTA writes are
+//   double-buffered by step parity: a CTA runs at most one step ahead of the
+//   CTA it sends to, because it needs that CTA's data of the step before.
 //
-// What bounds it on an H100: at small B the step is latency-bound, not
-// throughput-bound. Each CTA runs, per CMux step, 4 + 2 transforms of
-// log2(N) stages, about 21 block barriers and one cluster barrier, with
-// little work between them (4 butterflies per thread and stage). Each CTA
-// also reads 64 KB of key per step (value and Shoup twin of its prime's
-// slice), which at B = 1 comes from device memory (the 65.5 MB key does not
-// fit in the 50 MB L2) with no prefetch. Prefetching the next step's slice
-// (cp.async or TMA) and fewer barriers are later work.
+// Tried and dropped, each slower on the card: the cluster of 2 with
+// cluster.sync() and remote reads of the peer's residues, the inverse on 8
+// values a thread with half the threads idle, N as a run-time value with one
+// code path (about twice the operations a step, most of them addresses). The
+// cluster of 2 with staged key rows (one CTA an SM, 66 samples at once) was
+// 6 % faster than without for batches of 31 to 66 (2.20 against 2.35 ms) and
+// moved no 16-bit operation beyond run-to-run spread: taken out.
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -51,121 +69,410 @@ namespace cg = cooperative_groups;
 using tfhe::kKpl;
 using tfhe::kOut;
 using tfhe::kPrimes;
+using tfhe::mulm;
+using tfhe::subm;
 
-extern "C" int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* r, int32_t* ext,
-                              int B, int N, int C, int t, int basebit, unsigned int prec_offset,
-                              cudaStream_t stream);
+extern "C" int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t* r,
+                              int32_t* ext, int B, int N, int C, int t, int basebit,
+                              unsigned int prec_offset, int mma, int split, cudaStream_t stream);
 
 namespace {
 
-// n CMux steps on a cluster of kPrimes CTAs per sample; CTA rank p works mod
-// prime p. Coefficient i of polynomial c of sample s is
-// acc_io[s * s_stride + c * c_stride + i], updated in place; bara int32[B][n]
-// in [0, 2N); bk/bksh uint32[n][kPrimes][kKpl][kOut][N] (the bk_ntt layout).
-__global__ void __cluster_dims__(kPrimes, 1, 1)
+// A transform row in shared memory: element e at word e + e/16, which keeps
+// the strided reads and writes of every pass to two-way bank conflicts at
+// most. For the element sets of the passes below (base + j*u, j < 8 or 4, u a
+// power of two, base = hi*8u + lo or hi*4u + lo with lo < u)
+// pad(base + j*u) = pad(base) + pad(j*u), a constant offset once the pass is
+// unrolled.
+__device__ __forceinline__ int pad(int e) { return e + (e >> 4); }
+__host__ __device__ constexpr int row_words(int N) { return N + (N >> 4); }
+
+// Lazy reduction (both primes are below 2^30, so 4p fits in 32 bits): inside
+// the transforms values stay in [0, 4p) (forward) or [0, 2p) (inverse) and a
+// Shoup product skips its last conditional subtraction; the residues that
+// leave the inverse transform are reduced to [0, p), so they are the same
+// numbers as those of extern_product.cuh.
+// x * w mod p up to one p: in [0, 2p) for any 32-bit x.
+__device__ __forceinline__ uint32_t lazy_mul(uint32_t x, uint32_t w, uint32_t w_sh, uint32_t p) {
+  return x * w - __umulhi(x, w_sh) * p;
+}
+// x in [0, 2m) -> [0, m)
+__device__ __forceinline__ uint32_t fold(uint32_t x, uint32_t m) { return min(x, x - m); }
+
+// Forward stages s0, s0 + 1, s0 + 2 of the DIF transform of
+// extern_product.cuh:ntt_forward on the 8 values v[j] = x[hi*8u + lo + j*u],
+// u = N >> (s0 + 3): stage s0 + a pairs j with j + (4 >> a), and element
+// hi*8u + lo + j*u lies in group hi*2^a + (j >> (3 - a)) of that stage.
+// tw[i] = (psi_br[i], its Shoup twin). Values in and out in [0, 4p).
+__device__ __forceinline__ void fwd_pass(uint32_t (&v)[8], int s0, int hi, const uint2* tw,
+                                         uint32_t p) {
+  const uint32_t p2 = 2u * p;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const uint2* t = tw + (1 << (s0 + a)) + (hi << a);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if ((j & (4 >> a)) == 0) {
+        const uint2 w = t[j >> (3 - a)];
+        const uint32_t x = fold(v[j], p2);
+        const uint32_t wv = lazy_mul(v[j + (4 >> a)], w.x, w.y, p);
+        v[j] = x + wv;
+        v[j + (4 >> a)] = x + p2 - wv;
+      }
+    }
+  }
+}
+
+// The last `tail` (0, 1 or 2) forward stages on the 4 neighbouring values
+// v[j] = x[4*g + j]: stage logN - 2 pairs j with j + 2 (group g), stage
+// logN - 1 pairs j with j + 1 (group 2g + (j >> 1)).
+__device__ __forceinline__ void fwd_tail(uint32_t (&v)[4], int tail, int g, int N,
+                                         const uint2* tw, uint32_t p) {
+  const uint32_t p2 = 2u * p;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (a >= 2 - tail) {
+      const uint2* t = tw + (N >> (2 - a)) + (g << a);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((j & (2 >> a)) == 0) {
+          const uint2 w = t[j >> (2 - a)];
+          const uint32_t x = fold(v[j], p2);
+          const uint32_t wv = lazy_mul(v[j + (2 >> a)], w.x, w.y, p);
+          v[j] = x + wv;
+          v[j + (2 >> a)] = x + p2 - wv;
+        }
+      }
+    }
+  }
+}
+
+// Inverse stages lt0 + a, a = a_first .. 1, of ntt_inverse on the 4 values
+// v[j] = x[hi*4u + lo + j*u], u = 1 << lt0: stage lt0 + a pairs j with
+// j + (1 << a); the element lies in group hi*(2 >> a) + (j >> (a + 1)).
+// Values in and out in [0, 2p); the last stage (lt = logN - 1) carries N^-1
+// as ntt_inverse does and leaves residues in [0, p).
+__device__ __forceinline__ void inv_pass(uint32_t (&v)[4], int lt0, int a_first, int hi, int N,
+                                         int logN, const uint2* tw, const tfhe::Prime& P) {
+  const uint32_t p2 = 2u * P.p;
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (a >= a_first) {
+      const int lt = lt0 + a;
+      if (lt == logN - 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if ((j & (1 << a)) == 0) {
+            const uint32_t x = v[j], y = v[j + (1 << a)];
+            v[j] = fold(lazy_mul(x + y, P.ninv, P.ninv_sh, P.p), P.p);
+            v[j + (1 << a)] = fold(lazy_mul(x + p2 - y, P.ip1, P.ip1_sh, P.p), P.p);
+          }
+        }
+      } else {
+        const uint2* t = tw + (N >> (lt + 1)) + hi * (2 >> a);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if ((j & (1 << a)) == 0) {
+            const uint2 w = t[j >> (a + 1)];
+            const uint32_t x = v[j], y = v[j + (1 << a)];
+            v[j] = fold(x + y, p2);
+            v[j + (1 << a)] = lazy_mul(x + p2 - y, w.x, w.y, P.p);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---- shared-memory barriers with transaction counts, and stores into
+// another CTA of the cluster that complete on the receiver's barrier: the
+// receiver waits for the bytes it expects, with no fence and no cluster-wide
+// barrier
+
+__device__ __forceinline__ uint32_t shared_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the shared::cluster address of `addr` (a shared::cta address) in CTA `rank`
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t remote_addr, uint32_t v, uint32_t remote_bar) {
+  asm volatile("st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::
+                   "r"(remote_addr), "r"(v), "r"(remote_bar)
+               : "memory");
+}
+
+// n CMux steps on a cluster of kPrimes * kOut / NH CTAs per sample. A CTA
+// works mod one prime on NH of the kOut polynomials: NH = 1 (cluster of 4,
+// rank 2*prime + h): it keeps acc[h], forward-transforms the two digit rows
+// of X^a * acc[h] - acc[h], takes the other two rows from the CTA of the same
+// prime and the other polynomial, and computes output polynomial h of the
+// external product. NH = 2 (cluster of 2, rank = prime): all four rows and
+// both outputs. Either way the CTA of the other prime sends its residues of
+// the same polynomials for the CRT lift. Coefficient i of polynomial c of
+// sample s is acc_io[s * s_stride + c * c_stride + i], updated in place; bara
+// int32[B][n] in [0, 2N); bk/bksh uint32[n][kPrimes][kKpl][kOut][N] (the
+// bk_ntt layout). NH * N/4 threads: in the forward transforms a thread owns 8
+// elements of a digit row, in the MAC, the inverse transform and the CRT 4.
+template <int LOGN, int NH>
+__global__ void __launch_bounds__(NH << (LOGN - 2), NH)
     blind_rotate_small_kernel(int32_t* __restrict__ acc_io, int s_stride, int c_stride,
                               const int32_t* __restrict__ bara, const uint32_t* __restrict__ bk,
                               const uint32_t* __restrict__ bksh, const uint32_t* __restrict__ tab,
-                              int n, int N, int logN, int bgbit, uint32_t offset) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* acc = smem;                       // [kOut][N]
-  uint32_t* dig = smem + kOut * N;            // [kKpl][N]
-  uint32_t* xch = smem + (kOut + kKpl) * N;   // [2 buffers][kOut][N] residues
+                              int n, int bgbit, uint32_t offset) {
+  constexpr int N = 1 << LOGN;
+  constexpr bool STAGED = NH == 1;                    // key rows through shared memory
+  constexpr int RS = row_words(N);
+  constexpr int NT = NH * (N >> 2);                   // threads
+  constexpr int QUARTER = N >> 2, EIGHTH = N >> 3;
+  constexpr int TAIL = LOGN % 3;                      // forward stages left to the MAC
+  constexpr int KEYW = kKpl * NH * N;                 // words of this CTA's key rows of one step
+  constexpr uint32_t RES_BYTES = NH * N * 4;          // residues the CTA of the other prime sends
+  constexpr uint32_t ROW_BYTES = 2 * N * 4;           // digit rows the CTA of the other polynomial sends
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* keybuf = smem;                            // STAGED: [2 buffers][value, Shoup twin][kKpl][NH][N]
+  uint2* twf = reinterpret_cast<uint2*>(keybuf + (STAGED ? 4 * KEYW : 0));   // [N] (psi, psi_sh)
+  uint2* twi = twf + N;                               // [N] (ipsi, ipsi_sh)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(twi + N);            // [2 kinds][2 parities]
+  uint32_t* acc = reinterpret_cast<uint32_t*>(bars + 4);            // [NH][N]
+  uint32_t* xch = acc + NH * N;                       // [2 parities][kPrimes][NH][N] residues
+  uint32_t* ibuf = xch + 2 * kPrimes * NH * N;        // [NH][RS] inverse rows
+  uint32_t* own = ibuf + NH * RS;                     // [2*NH][RS] forward rows made here
+  uint32_t* recv = own + 2 * NH * RS;                 // NH == 1: [2 parities][2][RS] rows received
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
-  const unsigned peer = rank ^ 1u;
-  const int b = threadIdx.x;
-  const int half = N >> 1;
+  const int prime = NH == 2 ? (int)rank : (int)(rank >> 1);
+  const int h = NH == 2 ? 0 : (int)(rank & 1u);       // first polynomial of this CTA
+  const unsigned res_peer = NH == 2 ? rank ^ 1u : rank ^ 2u;
+  const int tid = threadIdx.x;
+  const int row = tid / EIGHTH, q = tid % EIGHTH;     // forward: digit row 2h + row, group of 8
+  const int pol = tid / QUARTER, iq = tid % QUARTER;  // MAC, inverse: polynomial h + pol, group of 4
   const uint32_t mask = (1u << bgbit) - 1u;
-  const int s = blockIdx.x / kPrimes;
+  const uint32_t half_bg = 1u << (bgbit - 1);
+  const int s = blockIdx.x / (kPrimes * kOut / NH);
   uint32_t* g = reinterpret_cast<uint32_t*>(acc_io) + (size_t)s * s_stride;
   const int32_t* a_s = bara + (size_t)s * n;
-  const tfhe::Prime P = tfhe::load_prime(tab, N, (int)rank);
+  const tfhe::Prime P = tfhe::load_prime(tab, N, prime);
   const uint32_t* cst = tab + (size_t)kPrimes * tfhe::kTabRows * N;
   const uint32_t P1 = __ldg(cst + 0), P2 = __ldg(cst + 5);
-  const size_t slice = (size_t)kKpl * kOut * N;   // one prime's key slice of one step
+  const uint32_t crt_inv = __ldg(cst + 10), crt_inv_sh = __ldg(cst + 11);
+  const uint32_t t_half = __ldg(cst + 12), r1_half = __ldg(cst + 13), m_mod = __ldg(cst + 14);
+  const uint32_t bar_rows = shared_u32(bars), bar_res = shared_u32(bars + 2);
+  // where this CTA's digit rows and residues go in the CTAs that take them
+  const uint32_t recv_there = map_to_rank(shared_u32(recv), rank ^ 1u);
+  const uint32_t bar_rows_there = map_to_rank(bar_rows, rank ^ 1u);
+  const uint32_t xch_there = map_to_rank(shared_u32(xch), res_peer);
+  const uint32_t bar_res_there = map_to_rank(bar_res, res_peer);
 
+  // this CTA's key rows of step j, value and Shoup twin, into buffer j & 1
+  auto prefetch = [&](int j) {
+    if (STAGED && j < n) {
+      const size_t at = ((size_t)j * kPrimes + prime) * kKpl * kOut * N;
+      uint4* dst = reinterpret_cast<uint4*>(keybuf + (size_t)(j & 1) * 2 * KEYW);
 #pragma unroll
-  for (int c = 0; c < kOut; ++c) {
-    acc[c * N + b] = g[(size_t)c * c_stride + b];
-    acc[c * N + b + half] = g[(size_t)c * c_stride + b + half];
+      for (int r = 0; r < kKpl; ++r) {                // NT threads x 16 bytes = one row of NH polynomials
+        const size_t src = at + (size_t)(r * kOut + h) * N + 4 * tid;
+        __pipeline_memcpy_async(dst + r * NT + tid, bk + src, 16);
+        __pipeline_memcpy_async(dst + KEYW / 4 + r * NT + tid, bksh + src, 16);
+      }
+    }
+    __pipeline_commit();
+  };
+  prefetch(0);
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mbar_init(shared_u32(bars + i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  for (int i = tid; i < N; i += NT) {
+    twf[i] = make_uint2(__ldg(P.psi + i), __ldg(P.psi_sh + i));
+    twi[i] = make_uint2(__ldg(P.ipsi + i), __ldg(P.ipsi_sh + i));
+  }
+  for (int i = tid; i < NH * N; i += NT) {
+    acc[i] = g[(size_t)(h + i / N) * c_stride + (i % N)];
+  }
+  // every CTA of the cluster runs, with its barriers set up, before any
+  // writes into another's shared memory
+  cluster.sync();
 
+  int a = __ldg(a_s);
   for (int j = 0; j < n; ++j) {
-    const int a = __ldg(a_s + j);
-    // digits of X^a * acc - acc, row c*l + p (offset form, in [0, Bg))
+    const int par = j & 1;
+    const uint32_t phase = (uint32_t)(j >> 1) & 1u;
+    prefetch(j + 1);
+    const int a_next = j + 1 < n ? __ldg(a_s + j + 1) : 0;
+    if (tid == 0) {
+      if (NH == 1) mbar_arrive_expect_tx(bar_rows + 8 * par, ROW_BYTES);
+      mbar_arrive_expect_tx(bar_res + 8 * par, RES_BYTES);
+    }
+
+    // forward passes on the digits of X^a * acc[c] - acc[c], row 2c + d,
+    // signed: digit - Bg/2 as a residue. Pass 1 (stages 0-2) takes them
+    // straight into registers. With NH == 1 the last pass also sends the
+    // rows to the CTA of the other polynomial.
+    {
+      uint32_t v[8];
+      const uint32_t* ac = acc + (row >> 1) * N;
+      const int sh = 32 - ((row & 1) + 1) * bgbit;
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = b + q * half;
+      for (int jj = 0; jj < 8; ++jj) {
+        const int i = q + jj * EIGHTH;
         int d = i - a;
         if (d < 0) d += 2 * N;
         const bool neg = d >= N;
-        const uint32_t v = acc[c * N + (neg ? d - N : d)];
-        const uint32_t u = (neg ? 0u - v : v) - acc[c * N + i] + offset;
-        dig[(2 * c) * N + i] = (u >> (32 - bgbit)) & mask;
-        dig[(2 * c + 1) * N + i] = (u >> (32 - 2 * bgbit)) & mask;
+        const uint32_t x = ac[neg ? d - N : d];
+        const uint32_t u = (neg ? 0u - x : x) - ac[i] + offset;
+        const uint32_t dg = (u >> sh) & mask;
+        v[jj] = dg >= half_bg ? dg - half_bg : dg + P.p - half_bg;
       }
+      uint32_t* x = own + row * RS;
+#pragma unroll
+      for (int s0 = 0; s0 < LOGN - TAIL; s0 += 3) {
+        const int lu = LOGN - s0 - 3;
+        const int hi = q >> lu;
+        const int pb = pad((hi << (lu + 3)) + (q & ((1 << lu) - 1)));
+        if (s0 > 0) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) v[jj] = x[pb + pad(jj << lu)];
+        }
+        fwd_pass(v, s0, hi, twf, P.p);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) x[pb + pad(jj << lu)] = v[jj];
+        if (NH == 1 && s0 + 3 >= LOGN - TAIL) {
+          const uint32_t there = recv_there + 4u * (uint32_t)((2 * par + row) * RS + pb);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            st_async(there + 4u * (uint32_t)pad(jj << lu), v[jj], bar_rows_there + 8 * par);
+          }
+        }
+        if (s0 + 3 < LOGN - TAIL) __syncthreads();
+      }
+    }
+    __pipeline_wait_prior(1);                         // this step's key rows have landed
+    __syncthreads();
+
+    // the forward stages left over, the MAC against the key rows of output
+    // h + pol at the 4 elements 4*iq .. 4*iq+3, then inverse pass 1 (stages
+    // 0-1). With NH == 1 the rows made here come first and the wait for the
+    // other two after them.
+    uint32_t z[4];
+    {
+      const uint32_t* kb = keybuf + (size_t)par * 2 * KEYW;
+      const uint32_t p2 = 2u * P.p;
+      const int pb = pad(4 * iq);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) z[jj] = 0u;
+#pragma unroll
+      for (int k = 0; k < kKpl; ++k) {
+        const int r = NH == 2 ? k : (k ^ (2 * h));    // digit row; k < 2: a row made here
+        if (NH == 1 && k == 2) mbar_wait(bar_rows + 8 * par, phase);
+        uint4 w4, s4;
+        if (STAGED) {
+          const int at = (r * NH + pol) * N + 4 * iq;
+          w4 = *reinterpret_cast<const uint4*>(kb + at);
+          s4 = *reinterpret_cast<const uint4*>(kb + KEYW + at);
+        } else {      // straight from the key: the batch's other CTAs keep it in L2
+          const size_t at = ((size_t)j * kPrimes + prime) * kKpl * kOut * N +
+                            (size_t)(r * kOut + h + pol) * N + 4 * iq;
+          w4 = __ldg(reinterpret_cast<const uint4*>(bk + at));
+          s4 = __ldg(reinterpret_cast<const uint4*>(bksh + at));
+        }
+        const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+        const uint32_t sw[4] = {s4.x, s4.y, s4.z, s4.w};
+        const uint32_t* src = NH == 2 ? own + r * RS
+                              : k < 2 ? own + (r & 1) * RS
+                                      : recv + (2 * par + (r & 1)) * RS;
+        uint32_t x[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) x[jj] = src[pb + jj];
+        fwd_tail(x, TAIL, iq, N, twf, P.p);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          z[jj] = fold(z[jj] + lazy_mul(x[jj], w[jj], sw[jj], P.p), p2);
+        }
+      }
+      inv_pass(z, 0, 0, iq, N, LOGN, twi, P);
+      uint32_t* y = ibuf + pol * RS + pb;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) y[jj] = z[jj];
     }
     __syncthreads();
-    tfhe::ntt_forward<kKpl>(dig, N, logN, P);
-
-    // MAC against this prime's slice; coefficient i of every row is read and
-    // written by this thread only
-    const uint32_t* w = bk + ((size_t)j * kPrimes + rank) * slice;
-    const uint32_t* wsh = bksh + ((size_t)j * kPrimes + rank) * slice;
+    // residues mod this prime: slot `prime` of buffer `par`, here and in the
+    // CTA of the other prime
+    const int slot = ((par * kPrimes + prime) * NH + pol) * N;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int i = b + q * half;
-      const uint32_t one = __ldg(P.ones + i);
-      uint32_t acc0 = 0, acc1 = 0;
+    for (int l0 = 2; l0 < LOGN; l0 += 2) {
+      const bool last = l0 + 2 >= LOGN;
+      const int l0e = l0 < LOGN - 2 ? l0 : LOGN - 2;
+      const int hi = iq >> l0e;
+      const int base = (hi << (l0e + 2)) + (iq & ((1 << l0e) - 1));
+      uint32_t* y = ibuf + pol * RS + pad(base);
 #pragma unroll
-      for (int r = 0; r < kKpl; ++r) {
-        const uint32_t dv = tfhe::subm(dig[r * N + i], one, P.p);
-        const size_t o = (size_t)(r * kOut) * N + i;
-        acc0 = tfhe::addm(acc0, tfhe::mulm(dv, __ldg(w + o), __ldg(wsh + o), P.p), P.p);
-        acc1 = tfhe::addm(acc1, tfhe::mulm(dv, __ldg(w + o + N), __ldg(wsh + o + N), P.p), P.p);
+      for (int jj = 0; jj < 4; ++jj) z[jj] = y[pad(jj << l0e)];
+      inv_pass(z, l0e, l0 - l0e, hi, N, LOGN, twi, P);
+      if (last) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int at = slot + base + (jj << l0e);
+          xch[at] = z[jj];
+          st_async(xch_there + 4u * (uint32_t)at, z[jj], bar_res_there + 8 * par);
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) y[pad(jj << l0e)] = z[jj];
       }
-      dig[i] = acc0;
-      dig[N + i] = acc1;
+      __syncthreads();
     }
-    __syncthreads();
-    uint32_t res[kOut][2];
-    tfhe::ntt_inverse<kOut>(dig, N, logN, P, res);
 
-    // exchange residues with the peer CTA, then the CRT lift of both
-    uint32_t* mine = xch + (size_t)(j & 1) * kOut * N;
+    // this CTA now holds both primes' residues of its polynomials: the CRT lift
+    mbar_wait(bar_res + 8 * par, phase);
+    const uint32_t* res = xch + par * kPrimes * NH * N;
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      mine[o * N + b] = res[o][0];
-      mine[o * N + b + half] = res[o][1];
+    for (int k = 0; k < 4; ++k) {
+      const int i = tid + k * NT;
+      const uint32_t r1 = res[i], r2 = res[NH * N + i];
+      const uint32_t r1p2 = r1 >= P2 ? r1 - P2 : r1;
+      const uint32_t tt = mulm(subm(r2, r1p2, P2), crt_inv, crt_inv_sh, P2);
+      const uint32_t rep = r1 + P1 * tt;
+      const bool upper = tt > t_half || (tt == t_half && r1 >= r1_half);
+      acc[i] += upper ? rep - m_mod : rep;
     }
-    cluster.sync();
-    const uint32_t* theirs = cluster.map_shared_rank(mine, peer);
-#pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = b + q * half;
-        const uint32_t other = theirs[o * N + i];
-        const uint32_t r1 = rank == 0 ? res[o][q] : other;
-        const uint32_t r2 = rank == 0 ? other : res[o][q];
-        acc[o * N + i] += tfhe::crt(r1, r2, P1, P2, cst + 10);
-      }
-    }
+    a = a_next;
     __syncthreads();
   }
 
-  // the peer may still read this CTA's residues of the last step
+  // no CTA leaves while another may still write into it
   cluster.sync();
-  if (rank == 0) {
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      g[(size_t)c * c_stride + b] = acc[c * N + b];
-      g[(size_t)c * c_stride + b + half] = acc[c * N + b + half];
-    }
+  if (prime == 0) {
+    for (int i = tid; i < NH * N; i += NT) g[(size_t)(h + i / N) * c_stride + (i % N)] = acc[i];
   }
 }
 
@@ -175,18 +482,95 @@ int log2i(int x) {
   return l;
 }
 
-cudaError_t launch_small(int32_t* acc, int s_stride, int c_stride, const int32_t* bara,
-                         const uint32_t* bk, const uint32_t* bksh, const uint32_t* tab, int B,
-                         int n, int N, int bgbit, uint32_t offset, cudaStream_t stream) {
-  const size_t smem = (size_t)(kOut + kKpl + 2 * kOut) * N * sizeof(uint32_t);
+// Launch configuration of blind_rotate_small_kernel<LOGN, NH> for B
+// samples; raises the kernel's shared-memory limit where it needs more than
+// the default.
+template <int LOGN, int NH>
+cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
+                      cudaStream_t stream) {
+  constexpr int N = 1 << LOGN;
+  constexpr int kCluster = kPrimes * kOut / NH;
+  // two buffers of key rows with Shoup twins, twiddle pairs, barriers, acc,
+  // two buffers of residues, inverse rows, forward rows made and received
+  constexpr size_t words = (size_t)((NH == 1 ? 4 * kKpl : 0) + 4 + NH + 2 * kPrimes * NH) * N + 8 +
+                           (size_t)(NH + 2 * NH + (NH == 1 ? 4 : 0)) * row_words(N);
+  constexpr size_t smem = sizeof(uint32_t) * words;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blind_rotate_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(blind_rotate_small_kernel<LOGN, NH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  blind_rotate_small_kernel<<<kPrimes * B, N / 2, smem, stream>>>(
-      acc, s_stride, c_stride, bara, bk, bksh, tab, n, N, log2i(N), bgbit, offset);
-  return cudaGetLastError();
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(kCluster * B);
+  cfg->blockDim = dim3(NH * (N >> 2));
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Runs the kernel when acc is given; else writes to *in_flight how many
+// clusters (samples) the card holds at once.
+template <int LOGN, int NH>
+cudaError_t launch_as(int32_t* acc, int s_stride, int c_stride, const int32_t* bara,
+                      const uint32_t* bk, const uint32_t* bksh, const uint32_t* tab, int B, int n,
+                      int bgbit, uint32_t offset, cudaStream_t stream, int* in_flight) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = configure<LOGN, NH>(&cfg, &attr, B, stream);
+  if (err != cudaSuccess) return err;
+  if (in_flight != nullptr) {
+    return cudaOccupancyMaxActiveClusters(in_flight,
+                                          blind_rotate_small_kernel<LOGN, NH>, &cfg);
+  }
+  return cudaLaunchKernelEx(&cfg, blind_rotate_small_kernel<LOGN, NH>, acc, s_stride, c_stride,
+                            bara, bk, bksh, tab, n, bgbit, offset);
+}
+
+template <int NH>
+cudaError_t launch_n(int32_t* acc, int s_stride, int c_stride, const int32_t* bara,
+                     const uint32_t* bk, const uint32_t* bksh, const uint32_t* tab, int B, int n,
+                     int N, int bgbit, uint32_t offset, cudaStream_t stream, int* in_flight) {
+  switch (log2i(N)) {
+#define TFHE_CASE(L)                                                                       \
+  case L:                                                                                  \
+    return launch_as<L, NH>(acc, s_stride, c_stride, bara, bk, bksh, tab, B, n, bgbit, offset, \
+                            stream, in_flight);
+    TFHE_CASE(6)
+    TFHE_CASE(7)
+    TFHE_CASE(8)
+    TFHE_CASE(9)
+    TFHE_CASE(10)
+#undef TFHE_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// `cluster` CTAs per sample: 4 (one polynomial of one prime each, key rows
+// through shared memory, one CTA per SM at N = 1024) or 2 (one prime each,
+// the MAC reads the key itself, two CTAs per SM: slower per sample, more
+// samples at once). ops/cmux_packed.py small_cluster chooses by the batch.
+cudaError_t launch_small(int32_t* acc, int s_stride, int c_stride, const int32_t* bara,
+                         const uint32_t* bk, const uint32_t* bksh, const uint32_t* tab, int B,
+                         int n, int N, int bgbit, uint32_t offset, int cluster,
+                         cudaStream_t stream, int* in_flight = nullptr) {
+  if (N < 64 || N > 1024 || (N & (N - 1)) || n < 1 || B < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (cluster == 4) {
+    err = launch_n<1>(acc, s_stride, c_stride, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream,
+                      in_flight);
+  } else if (cluster == 2) {
+    err = launch_n<2>(acc, s_stride, c_stride, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream,
+                      in_flight);
+  }
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -197,22 +581,32 @@ extern "C" {
 // row c*B + s), updated in place.
 int tfhe_blind_rotate_small(int32_t* acc_p, const int32_t* bara, const uint32_t* bk,
                             const uint32_t* bksh, const uint32_t* tab, int B, int n, int N,
-                            int bgbit, unsigned int offset, cudaStream_t stream) {
-  return (int)launch_small(acc_p, N, B * N, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
+                            int bgbit, unsigned int offset, int cluster, cudaStream_t stream) {
+  return (int)launch_small(acc_p, N, B * N, bara, bk, bksh, tab, B, n, N, bgbit, offset, cluster,
+                           stream);
+}
+
+// How many samples the card works on at once in this form of the kernel
+// (cudaOccupancyMaxActiveClusters): a larger batch runs in several waves.
+int tfhe_blind_rotate_small_in_flight(int N, int cluster, int* in_flight) {
+  return (int)launch_small(nullptr, 0, 0, nullptr, nullptr, nullptr, nullptr, 1, 1, N, 0, 0u,
+                           cluster, nullptr, in_flight);
 }
 
 // The bootstrap of a small batch: the blind rotate on acc int32[B][k+1][N]
-// (in place), then sample extract and key switch (cmux.cu keyswitch_kernel)
+// (in place), then sample extract and key switch (cmux.cu tfhe_keyswitch)
 // into r int32[B][C] and ext int32[2][B].
 int tfhe_blind_rotate_small_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                                const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
-                               int32_t* r, int32_t* ext, int B, int n, int N, int bgbit,
-                               unsigned int offset, int C, int t, int basebit,
-                               unsigned int prec_offset, cudaStream_t stream) {
-  const cudaError_t err =
-      launch_small(acc, kOut * N, N, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
+                               int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N,
+                               int bgbit, unsigned int offset, int cluster, int C, int t,
+                               int basebit, unsigned int prec_offset, int mma, int split,
+                               cudaStream_t stream) {
+  const cudaError_t err = launch_small(acc, kOut * N, N, bara, bk, bksh, tab, B, n, N, bgbit, offset,
+                                       cluster, stream);
   if (err != cudaSuccess) return (int)err;
-  return tfhe_keyswitch(acc, tks, r, ext, B, N, C, t, basebit, prec_offset, stream);
+  return tfhe_keyswitch(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset, mma, split,
+                        stream);
 }
 
 }  // extern "C"

@@ -7,33 +7,48 @@
 //   blind_rotate_kernel <- blind_rotate_fused (:533, body _scan_kernel :369)
 //                          and, with n = 1, blind_rotate_step (:312,
 //                          _step_kernel :291): all n CMux steps in one launch.
-//   keyswitch_kernel    <- the key-switch epilogue of blind_rotate_ks_fused
+//   ks_*_kernel         <- the key-switch epilogue of blind_rotate_ks_fused
 //                          (:485, _scan_ks_kernel :398); tfhe_blind_rotate_ks
-//                          launches blind_rotate_kernel and then this kernel,
-//                          blind_rotate_small.cu its own blind rotate and then
-//                          this kernel (through tfhe_keyswitch).
+//                          launches blind_rotate_kernel and then the key
+//                          switch, blind_rotate_small.cu its own blind rotate
+//                          and then the key switch (through tfhe_keyswitch).
 //
-// Design (first, simple version): one block of N/2 threads per sample. The
-// accumulator int32[2][N] (8 KB at N = 1024) stays in shared memory for all
-// n steps, beside the 4 digit rows (16 KB). The per-sample X^a rotation is
-// index arithmetic, as in the reference's torusPolynomialMulByXai, not the
-// TPU's roll bit-ladder (:333-350).
+// Blind rotate (cmux_delta_kernel, blind_rotate_kernel): one block of N/2
+// threads per sample. The accumulator int32[2][N] (8 KB at N = 1024) stays in
+// shared memory for all n steps, beside the 4 digit rows (16 KB). The
+// per-sample X^a rotation is index arithmetic, as in the reference's
+// torusPolynomialMulByXai, not the TPU's roll bit-ladder (:333-350).
 //
-// What bounds it on an H100: every block streams the whole bootstrapping key,
-// value and Shoup twin, 2 x 32.8 MB = 65.5 MB at PARAMS_110, once per
-// bootstrap. At B = 256 that is 256 passes over a key larger than the 50 MB
-// L2. Blocks run the steps in roughly the same order, so most slices are
-// shared in L2 by the blocks in flight; the arithmetic (2 primes x 6
-// transforms of 10 stages, each behind a barrier) is the other bound. Sharing
-// one key read between several samples of a block is later work.
+// What bounds the blind rotate on an H100: every block streams the whole
+// bootstrapping key, value and Shoup twin, 2 x 32.8 MB = 65.5 MB at
+// PARAMS_110, once per bootstrap. At B = 256 that is 256 passes over a key
+// larger than the 50 MB L2. Blocks run the steps in roughly the same order, so
+// most slices are shared in L2 by the blocks in flight; the arithmetic (2
+// primes x 6 transforms of 10 stages, each behind a barrier) is the other
+// bound: 12.3 ms at B = 256 against 3.9 ms for its int32 operations alone.
+// blind_rotate_small.cu now does the same work faster at every batch size
+// measured (its transforms keep three stages in registers); carrying that
+// design over to this kernel, and sharing one key read between several
+// samples of a block, is the next work on it.
 //
-// The key switch (keyswitch_kernel) needs no matrix unit: the one-hot digit
-// matrix of the TPU version is a gather-sum. For each nonzero base-4 digit
-// h of coefficient m, digit position j, the block adds the int8 limb row
-// tks[j*(base-1) + h-1][m][:] (4 limbs x C columns) into int32 sums, then
-// recombines l0 + l1<<8 + l2<<16 + l3<<24 with uint32 wrap. The 48 MiB table
-// does not fit in shared memory; it is read from global memory through L2.
-// The TPU kernel summed in float32 (exact there); int32 is exact here.
+// Key switch (ks_gather_kernel, ks_mma_kernel, ks_finish_kernel): the TPU
+// version multiplies a one-hot digit matrix by the int8 limb table on the
+// matrix unit and sums in float32 (exact there); int32 is exact here. For
+// each nonzero base-4 digit h of coefficient m, digit position j, the sample
+// takes the int8 limb row tks[j*(base-1) + h-1][m][:] (4 limbs x C columns),
+// and the result is l0 + l1<<8 + l2<<16 + l3<<24 of the summed limbs with
+// uint32 wrap. What bounds it: bytes. One sample selects about 6,144 rows of
+// 2 KB (12.6 MB, 0.004 ms at the card's memory rate); a batch of 256 touches
+// all of the 48 MiB table (0.015 ms). The earlier kernel gave a sample one
+// block of 128 threads that walked its 8,192 digits in order, one dependent
+// 4-byte load at a time (2.75 ms at B = 1, 1.58 ms at B = 256). Now two arms
+// behind tfhe_keyswitch, chosen by ops/cmux.py keyswitch_plan:
+// - small batches: a gather spread over the card, a few coefficients of one
+//   sample per block, 16-byte loads, all digits of a coefficient in flight;
+// - large batches: the one-hot product on the tensor cores (mma.sync s8), so
+//   that a table byte is read once for up to 128 samples.
+// Both add int32 partial sums into a zeroed scratch with atomicAdd (exact,
+// the same in any order) and a short kernel recombines the limbs.
 
 #include <cuda_runtime.h>
 
@@ -135,57 +150,283 @@ __global__ void blind_rotate_kernel(int32_t* __restrict__ acc_io, const int32_t*
   }
 }
 
-// Sample extract (native order: x[m] = acc0[0] if m == 0 else -acc0[m]) and
-// key switch of one sample per block of C/4 threads; thread tid owns columns
-// 4*tid .. 4*tid+3 of every limb plane. tks int8[t*(base-1)][N][4*C];
-// r int32[B][C]; ext int32[2][B] = (b_ext, count of nonzero digits).
-__global__ void keyswitch_kernel(const int32_t* __restrict__ acc, const int8_t* __restrict__ tks,
-                                 int32_t* __restrict__ r, int32_t* __restrict__ ext, int B,
-                                 int N, int C, int t, int basebit, uint32_t prec_offset) {
-  extern __shared__ uint32_t su[];    // [N] offset coefficients, then the digit count
+// ---------------------------------------------------------------- key switch
+//
+// Sample extract and key switch of acc int32[B][2][N]. The extracted sample is
+// x[m] = acc0[0] if m == 0 else -acc0[m] (native order; the index map is
+// folded into the table), u = x + prec_offset, digit jd of coefficient m is
+// (u >> (32 - (jd+1)*basebit)) & (base-1). tks int8[t*(base-1)][N][4*C] holds,
+// for plane jh = jd*(base-1) + h-1 and coefficient m, a row of four limb
+// planes of C columns. Both arms add int32 partial sums of the selected rows
+// into sums int32[B][4*C] (zeroed by the wrapper) with atomicAdd, which is
+// exact and the same whatever the order; ks_finish_kernel recombines the
+// limbs into r int32[B][C] and writes ext int32[2][B] = (b_ext, count of
+// nonzero digits).
+
+// Small batches. Grid (S, B): block s of sample b gathers the rows of `per`
+// = N/S coefficients. Thread tid owns bytes 16*tid .. 16*tid+15 of a row
+// (blockDim = 4*C/16), so a row is one 16-byte load per thread and the t
+// digits of a coefficient are t independent loads in flight.
+__global__ void ks_gather_kernel(const int32_t* __restrict__ acc, const int8_t* __restrict__ tks,
+                                 int32_t* __restrict__ sums, int N, int C, int t, int basebit,
+                                 uint32_t prec_offset, int per) {
+  extern __shared__ uint32_t su[];    // [max(per, 16*blockDim)]
   const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int m0 = blockIdx.x * per;
   const uint32_t dmask = (1u << basebit) - 1u;
   const int bm1 = (1 << basebit) - 1;
-  const uint32_t* a0 = reinterpret_cast<const uint32_t*>(acc) + (size_t)blockIdx.x * kOut * N;
-  if (tid == 0) su[N] = 0u;
-  uint32_t nnz = 0;
-  for (int m = tid; m < N; m += blockDim.x) {
-    const uint32_t x = m == 0 ? a0[0] : 0u - a0[m];
-    const uint32_t u = x + prec_offset;
-    su[m] = u;
-    for (int jd = 0; jd < t; ++jd) nnz += ((u >> (32 - (jd + 1) * basebit)) & dmask) != 0u;
+  const uint32_t* a0 = reinterpret_cast<const uint32_t*>(acc) + (size_t)b * kOut * N;
+  for (int i = tid; i < per; i += blockDim.x) {
+    const int m = m0 + i;
+    const uint32_t v = __ldg(a0 + m);
+    su[i] = (m == 0 ? v : 0u - v) + prec_offset;
   }
   __syncthreads();
-  atomicAdd(su + N, nnz);
 
-  int sum[4][4] = {};
+  int sum[16] = {};
   const size_t row_bytes = 4 * (size_t)C;
-  for (int m = 0; m < N; ++m) {
-    const uint32_t u = su[m];
-    for (int jd = 0; jd < t; ++jd) {
-      const uint32_t h = (u >> (32 - (jd + 1) * basebit)) & dmask;
-      if (h == 0u) continue;
-      const int8_t* row = tks + ((size_t)(jd * bm1 + (int)h - 1) * N + m) * row_bytes;
+  const int8_t* col = tks + 16 * (size_t)tid;
+  for (int i = 0; i < per; ++i) {
+    const uint32_t u = su[i];
+    const size_t m = (size_t)(m0 + i);
+    for (int j0 = 0; j0 < t; j0 += 8) {
+      int4 v[8];
 #pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const char4 v = __ldg(reinterpret_cast<const char4*>(row + (size_t)l * C) + tid);
-        sum[l][0] += v.x;
-        sum[l][1] += v.y;
-        sum[l][2] += v.z;
-        sum[l][3] += v.w;
+      for (int k = 0; k < 8; ++k) {
+        const int jd = j0 + k;
+        const uint32_t h = jd < t ? (u >> (32 - (jd + 1) * basebit)) & dmask : 0u;
+        v[k] = make_int4(0, 0, 0, 0);
+        if (h != 0u) {
+          const size_t row = (size_t)(jd * bm1 + (int)h - 1) * N + m;
+          v[k] = __ldg(reinterpret_cast<const int4*>(col + row * row_bytes));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sum[4 * q + 0] = __dp4a(w[q], 0x00000001, sum[4 * q + 0]);
+          sum[4 * q + 1] = __dp4a(w[q], 0x00000100, sum[4 * q + 1]);
+          sum[4 * q + 2] = __dp4a(w[q], 0x00010000, sum[4 * q + 2]);
+          sum[4 * q + 3] = __dp4a(w[q], 0x01000000, sum[4 * q + 3]);
+        }
       }
     }
   }
-  uint32_t* ro = reinterpret_cast<uint32_t*>(r) + (size_t)blockIdx.x * C + 4 * tid;
+  // through shared memory, so that a warp's atomics fall on neighbouring words
+  __syncthreads();
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    ro[q] = (uint32_t)sum[0][q] + ((uint32_t)sum[1][q] << 8) + ((uint32_t)sum[2][q] << 16) +
-            ((uint32_t)sum[3][q] << 24);
+  for (int q = 0; q < 16; ++q) su[16 * tid + q] = (uint32_t)sum[q];
+  __syncthreads();
+  int32_t* out = sums + (size_t)b * row_bytes;
+  for (int i = tid; i < 16 * (int)blockDim.x; i += blockDim.x) {
+    const int v = (int)su[i];
+    if (v != 0) atomicAdd(out + i, v);
+  }
+}
+
+// Large batches: the one-hot product on the tensor cores, so that a table
+// byte is read once for up to kMmaRows samples. A block of 8 warps owns
+// kMmaRows samples x kMmaCols bytes of the row and the coefficients
+// [m0, m0 + per) of every plane (grid: column tiles, sample tiles, splits of
+// N). Warp w owns samples 16w .. 16w+15 and all kMmaCols columns: 16
+// mma.m16n8k32 (s8 x s8 -> s32) per step of 32 coefficients of one plane.
+// The one-hot A fragments are built in registers from u and never stored.
+// The table tile (32 coefficients x kMmaCols bytes of one plane) streams
+// through a ring of kMmaStages shared-memory stages filled by cp.async, one
+// 16-byte chunk per thread. The mma wants 4 consecutive k of one column in a
+// register, the table has 4 consecutive columns of one k in a word: each
+// thread loads 4 words (4 k x 4 columns) and transposes the 4x4 bytes with
+// byte permutes, which gives the B fragments of 4 column tiles at once
+// (column tile q of a group of 32 columns holds columns 4*v + q, v = 0..7).
+// Fragment k position 4*tig + i stands for coefficient tig + 4*i of the
+// step (and 16 + ...), in A and in B alike: with the stage rows padded to
+// kMmaRowWords words, the four tig then read four different bank groups.
+constexpr int kMmaRows = 128;
+constexpr int kMmaCols = 128;
+constexpr int kMmaStages = 4;
+constexpr int kMmaRowWords = 40;                       // 32 words of data, 8 of padding
+constexpr int kMmaStageWords = 32 * kMmaRowWords;
+constexpr int kMmaUStride = 33;
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst_shared, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__global__ void __launch_bounds__(256)
+    ks_mma_kernel(const int32_t* __restrict__ acc, const int8_t* __restrict__ tks,
+                  int32_t* __restrict__ sums, int B, int N, int C, int t, int basebit,
+                  uint32_t prec_offset, int per) {
+  __shared__ __align__(16) uint32_t stage[kMmaStages * kMmaStageWords];
+  __shared__ uint32_t ut[kMmaRows * kMmaUStride];     // u of this block's samples, one step
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * kMmaCols;             // byte column of the 4*C-wide row
+  const int b0 = blockIdx.y * kMmaRows;
+  const int m0 = blockIdx.z * per;
+  const int bm1 = (1 << basebit) - 1;
+  const int planes = t * bm1;
+  const uint32_t dmask = (1u << basebit) - 1u;
+  const size_t row_bytes = 4 * (size_t)C;
+  const int steps = (per / 32) * planes;              // step = (block of 32 coefficients, plane)
+  const bool active = b0 + 16 * warp < B;             // warp-uniform
+
+  // stage `st` of the ring <- step `s`: row tid/8 of the tile, chunk tid%8
+  auto fetch = [&](int s) {
+    if (s < steps) {
+      const int mb = s / planes, jh = s - mb * planes;
+      const int rrow = tid >> 3, chunk = tid & 7;
+      const size_t m = (size_t)(m0 + 32 * mb + rrow);
+      const int8_t* src = tks + ((size_t)jh * N + m) * row_bytes + col0 + 16 * chunk;
+      cp_async16(stage + (s % kMmaStages) * kMmaStageWords + rrow * kMmaRowWords + 4 * chunk,
+                 src);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  int c[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) fetch(s);
+
+  uint32_t uu[4][4];     // [a-register][byte]: u of (sample, coefficient) behind each A byte
+  uint32_t dg[4] = {};   // the digits jd of those, packed as bytes
+  for (int s = 0; s < steps; ++s) {
+    const int mb = s / planes, jh = s - mb * planes;
+    if (jh == 0) {
+      __syncthreads();                                // the last step's readers of ut are done
+      for (int i = tid; i < kMmaRows * 32; i += 256) {
+        const int rr = i >> 5, mm = i & 31;
+        const int m = m0 + 32 * mb + mm;
+        uint32_t u = 0u;
+        if (b0 + rr < B) {
+          const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(acc) +
+                                   (size_t)(b0 + rr) * kOut * N + m);
+          u = (m == 0 ? v : 0u - v) + prec_offset;
+        }
+        ut[rr * kMmaUStride + mm] = u;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int rr = 16 * warp + g + 8 * (a & 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) uu[a][i] = ut[rr * kMmaUStride + 16 * (a >> 1) + tig + 4 * i];
+      }
+    }
+    const int jd = jh / bm1, h = jh - jd * bm1 + 1;
+    if (h == 1) {
+      const int sh = 32 - (jd + 1) * basebit;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        dg[a] = ((uu[a][0] >> sh) & dmask) | (((uu[a][1] >> sh) & dmask) << 8) |
+                (((uu[a][2] >> sh) & dmask) << 16) | (((uu[a][3] >> sh) & dmask) << 24);
+      }
+    }
+    // one-hot bytes of digit h; the rows of samples past B are masked here
+    uint32_t afrag[4];
+    const uint32_t hh = (uint32_t)h * 0x01010101u;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const bool row_ok = b0 + 16 * warp + g + 8 * (a & 1) < B;
+      afrag[a] = row_ok ? (__vcmpeq4(dg[a], hh) & 0x01010101u) : 0u;
+    }
+
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmaStages - 2));
+    __syncthreads();                                  // step s has landed for every thread
+    fetch(s + kMmaStages - 1);                        // into the stage read at step s - 1
+
+    if (active) {
+      const uint32_t* tile = stage + (s % kMmaStages) * kMmaStageWords;
+#pragma unroll
+      for (int G = 0; G < 4; ++G) {
+        uint32_t w[2][4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            w[hf][i] = tile[(16 * hf + tig + 4 * i) * kMmaRowWords + 8 * G + g];
+          }
+        }
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const uint32_t t0 = __byte_perm(w[hf][0], w[hf][1], 0x5140);
+          const uint32_t t1 = __byte_perm(w[hf][0], w[hf][1], 0x7362);
+          const uint32_t t2 = __byte_perm(w[hf][2], w[hf][3], 0x5140);
+          const uint32_t t3 = __byte_perm(w[hf][2], w[hf][3], 0x7362);
+          bf[hf][0] = __byte_perm(t0, t2, 0x5410);
+          bf[hf][1] = __byte_perm(t0, t2, 0x7632);
+          bf[hf][2] = __byte_perm(t1, t3, 0x5410);
+          bf[hf][3] = __byte_perm(t1, t3, 0x7632);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mma_s8(c[4 * G + q], afrag, bf[0][q], bf[1][q]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  if (active) {
+#pragma unroll
+    for (int G = 0; G < 4; ++G) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = b0 + 16 * warp + g + 8 * (e >> 1);
+          const int cc = col0 + 32 * G + 4 * (2 * tig + (e & 1)) + q;
+          const int v = c[4 * G + q][e];
+          if (rr < B && v != 0) atomicAdd(sums + (size_t)rr * row_bytes + cc, v);
+        }
+      }
+    }
+  }
+}
+
+// Limb recombine l0 + l1<<8 + l2<<16 + l3<<24 (uint32 wrap) of the summed
+// planes, b_ext and the count of nonzero digits; one block per sample.
+__global__ void ks_finish_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ sums,
+                                 int32_t* __restrict__ r, int32_t* __restrict__ ext, int B, int N,
+                                 int C, int t, int basebit, uint32_t prec_offset) {
+  __shared__ unsigned int count;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const uint32_t dmask = (1u << basebit) - 1u;
+  const uint32_t* a0 = reinterpret_cast<const uint32_t*>(acc) + (size_t)b * kOut * N;
+  if (tid == 0) count = 0u;
+  __syncthreads();
+  unsigned int nnz = 0;
+  for (int m = tid; m < N; m += blockDim.x) {
+    const uint32_t v = __ldg(a0 + m);
+    const uint32_t u = (m == 0 ? v : 0u - v) + prec_offset;
+    for (int jd = 0; jd < t; ++jd) nnz += ((u >> (32 - (jd + 1) * basebit)) & dmask) != 0u;
+  }
+  atomicAdd(&count, nnz);
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(sums) + (size_t)b * 4 * C;
+  uint32_t* ro = reinterpret_cast<uint32_t*>(r) + (size_t)b * C;
+  for (int cc = tid; cc < C; cc += blockDim.x) {
+    ro[cc] = s[cc] + (s[C + cc] << 8) + (s[2 * C + cc] << 16) + (s[3 * C + cc] << 24);
   }
   __syncthreads();
   if (tid == 0) {
-    ext[blockIdx.x] = acc[(size_t)blockIdx.x * kOut * N + N];
-    ext[B + blockIdx.x] = (int32_t)su[N];
+    ext[b] = acc[(size_t)b * kOut * N + N];
+    ext[B + b] = (int32_t)count;
   }
 }
 
@@ -233,26 +474,44 @@ int tfhe_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_t* bk, con
   return (int)launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
 }
 
-// Sample extract and key switch of acc int32[B][2][N]; also called by
-// blind_rotate_small.cu after its blind rotate.
-int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* r, int32_t* ext, int B, int N,
-                   int C, int t, int basebit, unsigned int prec_offset, cudaStream_t stream) {
-  const size_t smem = (size_t)(N + 1) * sizeof(uint32_t);
-  const cudaError_t err = allow_smem(keyswitch_kernel, smem);
+// Sample extract and key switch of acc int32[B][2][N] into r int32[B][C] and
+// ext int32[2][B]; sums int32[B][4*C] is scratch that the caller has zeroed.
+// mma == 0: the gather arm with `split` blocks per sample; else the
+// tensor-core arm with N cut into `split` ranges (ops/cmux.py keyswitch_plan
+// chooses). Also called by blind_rotate_small.cu after its blind rotate.
+int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t* r, int32_t* ext,
+                   int B, int N, int C, int t, int basebit, unsigned int prec_offset, int mma,
+                   int split, cudaStream_t stream) {
+  if (split < 1 || N % split) return (int)cudaErrorInvalidValue;
+  const int per = N / split;
+  if (mma) {
+    if (per % 32 || (4 * C) % kMmaCols) return (int)cudaErrorInvalidValue;
+    const dim3 grid(4 * C / kMmaCols, (B + kMmaRows - 1) / kMmaRows, split);
+    ks_mma_kernel<<<grid, 256, 0, stream>>>(acc, tks, sums, B, N, C, t, basebit, prec_offset, per);
+  } else {
+    const int threads = C / 4;
+    const size_t smem = sizeof(uint32_t) * (size_t)(per > 16 * threads ? per : 16 * threads);
+    const cudaError_t err = allow_smem(ks_gather_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    ks_gather_kernel<<<dim3(split, B), threads, smem, stream>>>(acc, tks, sums, N, C, t, basebit,
+                                                                prec_offset, per);
+  }
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  keyswitch_kernel<<<B, C / 4, smem, stream>>>(acc, tks, r, ext, B, N, C, t, basebit, prec_offset);
+  ks_finish_kernel<<<B, 128, 0, stream>>>(acc, sums, r, ext, B, N, C, t, basebit, prec_offset);
   return (int)cudaGetLastError();
 }
 
 int tfhe_blind_rotate_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                          const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
-                         int32_t* r, int32_t* ext, int B, int n, int N, int bgbit,
+                         int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N, int bgbit,
                          unsigned int offset, int C, int t, int basebit,
-                         unsigned int prec_offset, cudaStream_t stream) {
+                         unsigned int prec_offset, int mma, int split, cudaStream_t stream) {
   const cudaError_t err =
       launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
   if (err != cudaSuccess) return (int)err;
-  return tfhe_keyswitch(acc, tks, r, ext, B, N, C, t, basebit, prec_offset, stream);
+  return tfhe_keyswitch(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset, mma, split,
+                        stream);
 }
 
 const char* tfhe_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,5 +1,8 @@
-// Device-side external product of the CMux: the shared body of every kernel
-// in cmux.cu.
+// Device-side external product of the CMux: the shared body of the
+// one-block-per-sample kernels of cmux.cu (cmux_delta_kernel,
+// blind_rotate_kernel). blind_rotate_small.cu takes the table layout, the
+// prime constants and mulm/subm from here and has its own transforms (three
+// stages a pass in registers, lazy reduction); they give the same residues.
 //
 // Replaces tfhe_tpu/ops/cmux_pallas.py:_ntt_extern_product (:246) and the
 // helpers it calls: _fwd_rows (:79), _inv_rows (:110), _crt (:235) and
@@ -19,9 +22,12 @@
 // coefficients b and b + N/2 outside the transforms.
 //
 // What bounds it: 2 primes x (4 forward + 2 inverse) transforms of log2(N)
-// stages, each stage a __syncthreads; the bootstrapping-key slice is read
-// once per call from global memory (128 KB at N = 1024, value and Shoup
-// twin), with 16-byte loads per coefficient.
+// stages, each stage a __syncthreads with 4 butterflies a thread between two
+// of them (about 44 barriers a CMux step), twiddles fetched with __ldg in
+// every stage; the bootstrapping-key slice is read once per call from global
+// memory (128 KB at N = 1024, value and Shoup twin), with 16-byte loads per
+// coefficient, at the moment of the MAC. blind_rotate_small.cu shows what
+// removing each of these is worth on an H100.
 #pragma once
 
 #include <cstdint>

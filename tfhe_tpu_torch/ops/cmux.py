@@ -13,6 +13,11 @@ of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]``.
 | blind_rotate_fused     | cmux_pallas.blind_rotate_fused (all n steps)    |
 | blind_rotate_ks_fused  | cmux_pallas.blind_rotate_ks_fused (+ extract    |
 |                        | and key switch)                                 |
+| keyswitch              | the key-switch epilogue of the above, alone     |
+
+The key-switch kernel has two arms behind one entry point
+(``keyswitch_plan``): a gather spread over the card for small batches and a
+one-hot int8 product on the tensor cores for large ones.
 """
 from __future__ import annotations
 
@@ -26,10 +31,28 @@ from ..params import TfheParams
 from ..core import bootstrap as bs
 from ._build import check, library
 
-# one count per TPU kernel replaced; blind_rotate_fused_packed (K5) is
+# one count per TPU kernel replaced, and one for the key-switch kernel, which
+# every wrapper that launches it raises; blind_rotate_fused_packed (K5) is
 # launched by the wrappers of ops/cmux_packed.py
 LAUNCHES = {"cmux_delta": 0, "blind_rotate_step": 0, "blind_rotate_fused": 0,
-            "blind_rotate_ks_fused": 0, "blind_rotate_fused_packed": 0}
+            "blind_rotate_ks_fused": 0, "blind_rotate_fused_packed": 0, "keyswitch": 0}
+
+# Largest batch whose key switch takes the gather arm; a larger one takes the
+# tensor-core arm. Measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py:
+# in the key-switch sweep the gather arm wins at B = 16 (0.053 against 0.063
+# ms) and loses at B = 24 (0.074 against 0.070 ms); its time grows with B
+# (12.6 MB of table rows per sample through L2), the tensor-core arm's hardly.
+# End to end ([circuits], the arms in turns): with the tensor-core arm forced
+# at every B a 16-bit add takes 33.0-33.1 ms against 32.3 ms, a division 737
+# against 724 ms: the gather arm is worth 0.04-0.05 ms a stage, about 2 % of
+# a serial operation (PERF.md).
+KS_GATHER_MAX = 16
+KS_GATHER_BLOCKS = 1024     # gather arm: blocks in flight aimed at, over all samples
+KS_GATHER_MIN_COEFFS = 4    # gather arm: fewest coefficients of a sample per block
+KS_MMA_BLOCKS = 256         # tensor-core arm: blocks aimed at
+KS_MMA_ROWS = 128           # tensor-core arm: samples per block (csrc/cmux.cu kMmaRows)
+KS_MMA_COLS = 128           # tensor-core arm: table bytes per row per block (kMmaCols)
+KS_MMA_STEP = 32            # tensor-core arm: coefficients per product step
 
 
 def reset_launches() -> None:
@@ -229,7 +252,59 @@ def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.T
     return acc.permute(1, 2, 0)
 
 
-# ------------------------------------------------------------------ K4
+# ------------------------------------------------------------------ key switch
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def gather_split(B: int, N: int) -> int:
+    """Gather arm: blocks per sample, each with N/split coefficients."""
+    return min(_pow2_floor(KS_GATHER_BLOCKS // B), max(1, N // KS_GATHER_MIN_COEFFS))
+
+
+def mma_split(B: int, N: int, C: int) -> int:
+    """Tensor-core arm: ranges of N, each a block per tile of samples and columns."""
+    tiles = (4 * C // KS_MMA_COLS) * -(-B // KS_MMA_ROWS)
+    return min(_pow2_floor(KS_MMA_BLOCKS // tiles), N // KS_MMA_STEP)
+
+
+def keyswitch_plan(B: int, N: int, C: int) -> tuple:
+    """(mma, split) for a key switch of B samples: which arm of the kernel
+    runs, and into how many equal coefficient ranges [i*N/split, (i+1)*N/split)
+    the N coefficients of a sample are cut, one block (gather arm) or one
+    block per tile of samples and columns (tensor-core arm) each."""
+    if B <= KS_GATHER_MAX:
+        return 0, gather_split(B, N)
+    return 1, mma_split(B, N, C)
+
+
+def _launch_keyswitch(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams, plan=None):
+    """The key-switch kernel on acc int32[B, k+1, N] (contiguous, on the card)."""
+    B = acc.shape[0]
+    C = _check_tks(tks_lane, params)
+    mma, split = plan or keyswitch_plan(B, params.N, C)
+    sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
+    r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
+    ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+    check(library().tfhe_keyswitch(
+        acc.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
+        B, params.N, C, params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split,
+        _stream(acc)))
+    LAUNCHES["keyswitch"] += 1
+    return r, ext
+
+
+def keyswitch(acc_t: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
+    """Sample extract and key switch of a rotated accumulator.
+
+    acc_t: int32[k+1, N, B]; tks_lane: int8[t*(base-1), N, 4*C]. Returns
+    (r int32[B, C], ext int32[2, B]) as blind_rotate_ks_fused."""
+    if not _on_cuda(acc_t, tks_lane):
+        return keyswitch_ref(acc_t, tks_lane, params)
+    _check_params(params)
+    return _launch_keyswitch(_acc_rows(acc_t, params), tks_lane, params)
+
 
 def keyswitch_ref(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
     """Plain version of the key-switch kernel on a rotated accumulator
@@ -243,6 +318,8 @@ def keyswitch_ref(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams)
     r = bs.ks_recombine(bs.int8_matmul(onehot, tks_lane.reshape(TB * N, C4)))
     return r, torch.stack([acc[1, 0, :], nnz])
 
+
+# ------------------------------------------------------------------ K4
 
 def blind_rotate_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
                               bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
@@ -272,13 +349,16 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
     _check_bk(bk_rows, bksh_rows, (n,), params)
     C = _check_tks(tks_lane, params)
     bara_b = bara.T.contiguous()
+    mma, split = keyswitch_plan(B, params.N, C)
+    sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
     r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
     ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
     tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
     check(library().tfhe_blind_rotate_ks(
         acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
-        tab.data_ptr(), tks_lane.data_ptr(), r.data_ptr(), ext.data_ptr(),
+        tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
         B, n, params.N, params.bk_Bgbit, params.decomp_offset, C, params.ks_t,
-        params.ks_basebit, params.ks_prec_offset, _stream(acc)))
+        params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
     LAUNCHES["blind_rotate_ks_fused"] += 1
+    LAUNCHES["keyswitch"] += 1
     return r, ext
