@@ -17,18 +17,23 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               batch 1) beside its plain version's, its bound (the least time
               the card could take) and, for the key switch, the one PyTorch
               call that computes the same (torch._int_mm on the one-hot
-              matrix); K3 and K4 again at the first batch the bootstrap gives
-              them (SMALL_BATCH_MAX + 1) and K5 at the batch of the gate path
-              (256), byte-equal; the key-switch kernel alone at both arms over
-              a list of batches, with all-zero and all-nonzero digits; then
-              the key switch and K5 (beside K3) over sweeps of the batch;
+              matrix); K1 and K2 also without their wrappers' copies, at batch
+              256 and 1 (what a launch and its set-up cost); K3 and K4 again at
+              the first batch from which the bootstrap gives them every batch
+              (SMALL_BATCH_MAX + 1),
+              every form of K1-K3 at ragged batches (1, S - 1, S + 1 for S
+              samples a block) and K5 at the batch of the gate path (256),
+              byte-equal; the key-switch kernel alone at both arms over a
+              list of batches, with all-zero and all-nonzero digits; then the
+              key switch, and K5 beside every form of K3, over sweeps of the
+              batch;
   4. main     the reference's keys at PARAMS_110, made on the card; a batch
               of 256 encrypted AND gates through the fused route must decrypt
-              to a & b, through the kernels (launch counters), equal the
+              to a & b, through the kernels bootstrap.small_batch() picks for
+              it (launch counters: K4, and K3 on the split route), equal the
               split route, and match the golden SHA-256 that tfhe_tpu
-              computed on the CPU for 8 reference-encrypted inputs; then a
-              batch beyond SMALL_BATCH_MAX the same way, through the
-              one-block-per-sample kernels (K3, K4);
+              computed on the CPU for 8 reference-encrypted inputs (through
+              K5); then a batch beyond SMALL_BATCH_MAX the same way (K4, K3);
   5. timing   AND chained 5 times on the batch of 256, kernel route and plain
               route, in ms per batch and bootstraps/s;
   6. circuits the serial-circuit path: 16-bit CipherInt operands at one
@@ -69,7 +74,12 @@ BATCH = 256
 CHAIN = 5
 SOURCE = "tfhe_tpu_torch/csrc/cmux.cu"
 SOURCE_SMALL = "tfhe_tpu_torch/csrc/blind_rotate_small.cu"
-SWEEP = (1, 2, 8, 30, 31, 64, 132, 133, 264, 265, 396, 528, 1056, 2048)   # K5 beside K3
+# K5 beside K3: the waves of each (30 and 132 samples for K5's two forms, 264
+# for K3 with two samples a block) and the batches between
+SWEEP = (1, 2, 8, 30, 31, 64, 132, 133, 192, 264, 265, 396, 528, 660, 792, 1056, 1188, 1320,
+         2048, 4096)
+LARGE_BATCH = 2049     # K3 and K4 against plain at a batch of several waves
+ROUTE_SLACK = 1.08     # the kernel small_batch() picks may be this much slower than the other
 KS_CHECK = (1, 2, 3, 33, 64, 256)           # key switch against keyswitch_ref, both arms
 KS_SWEEP = (1, 2, 8, 16, 24, 32, 64, 128, 256)   # key switch beside torch._int_mm
 # Peak rates the bounds are taken against (NVIDIA's H100 SXM data sheet): device
@@ -102,6 +112,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, needle: str, reps: int = 10):
+    """Mean device time in ms of the kernels whose name contains `needle`,
+    over `reps` calls of fn() under torch.profiler: what the kernel takes when
+    the CUDA events around its wrapper mostly time the host. None (not
+    measured) where the profiler does not record one device event a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and needle in ev.name]
+    return sum(spans) / reps / 1e3 if len(spans) == reps else None
 
 
 def max_abs_err(got, want) -> int:
@@ -435,39 +462,116 @@ def phase_kernels(sk, x, smi: str) -> dict:
         log(f"[kernels] {name} PARAMS_110 B={BATCH}: byte-equal (max |err| {err}), "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {out[name]['bound_ms']:.4f} ms "
             f"by {out[name]['bound_by']} ({smi})")
+    # K1 and K2 without the wrappers' layout copies: one launch of one step
+    tab_dec = dec.permute(2, 0, 1).contiguous()
+    delta = torch.empty((B, params.k + 1, params.N), dtype=torch.int32, device="cuda")
+    form = cmux.blind_rotate_plan(params.N)
+    tab = cmux._kernel_tables(params.N, params.halfBg, "cuda")
+    for count in (B, 1):
+        acc_rows, bara_b = cmux._acc_rows(acc_t[:, :, :count], params), bara_t[:1, :count].T.contiguous()
+        k2 = cuda_ms(lambda: cmux._launch_rotate(acc_rows, bara_b, bk[0], sh[0], params), 50)
+        k1 = cuda_ms(lambda: cmux.check(cmux.library().tfhe_cmux_delta(
+            tab_dec.data_ptr(), bk[0].data_ptr(), sh[0].data_ptr(), tab.data_ptr(),
+            delta.data_ptr(), count, params.N, *form, cmux._stream(delta))), 50)
+        out["cmux_delta"][f"launch_only_ms_B{count}"] = k1
+        out["blind_rotate_step"][f"launch_only_ms_B{count}"] = k2
+        log(f"[kernels] one step without the wrapper's copies, PARAMS_110 B={count}: cmux_delta "
+            f"{k1:.4f} ms, blind_rotate_step {k2:.4f} ms ({smi})")
+    # and on the device's own clock: the wrappers above are bound by the host
+    for name, needle in (("cmux_delta", "cmux_delta_kernel"),
+                         ("blind_rotate_step", "blind_rotate_kernel")):
+        out[name]["device_ms"] = ms = kernel_device_ms(calls[name][0], needle)
+        log(f"[kernels] {name} PARAMS_110 B={B}: "
+            + ("not measured" if ms is None else f"{ms:.4f} ms") +
+            f" on the device (torch.profiler, the kernel alone) ({smi})")
     out["keyswitch"] = {**ks_rows[BATCH], "shape": f"PARAMS_110 B={BATCH}",
                         "by_batch": {str(b): r for b, r in ks_rows.items()}}
     check_large_batch(sk, x)
+    check_ragged(sk, x)
     out["blind_rotate_fused_packed"] = phase_k5(sk, x, smi)
+    out["blind_rotate"]["by_batch"] = {
+        b: {"ms": r["k3_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
+        for b, r in out["blind_rotate_fused_packed"]["sweep"].items()}
     return out
 
 
 def check_large_batch(sk, x) -> None:
-    """K3 and K4 at the first batch the bootstrap gives them,
-    SMALL_BATCH_MAX + 1 (several waves of blocks), byte-equal to their plain
-    versions. K4's plain version is keyswitch_ref of K3's plain accumulator
-    (cmux.blind_rotate_ks_fused_ref), which is computed once here."""
+    """K3 and K4 at the first batch from which the bootstrap gives them every
+    batch, SMALL_BATCH_MAX + 1, and at LARGE_BATCH (several waves of blocks, an
+    odd batch that leaves the last block one sample), byte-equal to their
+    plain versions. The plain blind rotate runs once, on the larger batch (the
+    smaller is its first samples); K4's plain version is keyswitch_ref of that
+    accumulator (cmux.blind_rotate_ks_fused_ref)."""
     from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.core.lwe import lwe_concat
     from tfhe_tpu_torch.ops import cmux
     params, cloud = sk.params, sk.cloud
-    big = bs.SMALL_BATCH_MAX + 1
-    xs = lwe_concat([x] * -(-big // x.b.shape[0]))[:big]
+    bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
+    batches = sorted({bs.SMALL_BATCH_MAX + 1, LARGE_BATCH})
+    t0 = time.time()
+    xs = lwe_concat([x] * -(-batches[-1] // x.b.shape[0]))[:batches[-1]]
     acc, bara = bs._prepare_acc(xs, gates.MU, cloud)
-    acc_t, bara_t = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
+    plain_all = cmux.blind_rotate_fused_ref(acc.permute(1, 2, 0).contiguous(),
+                                            bara.T.contiguous(), bk, sh, params)
+    err = 0
+    for big in batches:
+        acc_t, bara_t = acc[:big].permute(1, 2, 0).contiguous(), bara[:big].T.contiguous()
+        plain_acc = plain_all[:, :, :big].contiguous()
+        err = max(err, expect_equal(f"blind_rotate 110 B={big}",
+                                    cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params),
+                                    plain_acc))
+        err = max(err, expect_equal(f"blind_rotate_ks 110 B={big}",
+                                    cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params),
+                                    cmux.keyswitch_ref(plain_acc, tks, params)))
+    torch.cuda.synchronize()
+    log(f"[kernels] blind_rotate and blind_rotate_ks PARAMS_110 B={batches} (SMALL_BATCH_MAX = "
+        f"{bs.SMALL_BATCH_MAX}: every batch above it is theirs): byte-equal to plain "
+        f"(max |err| {err}; {time.time() - t0:.1f} s)")
+
+
+def check_ragged(sk, x) -> None:
+    """Every form of the kernels that hold S samples a block (K1, K2, K3) at
+    the batches that leave the last block short, B = 1, S - 1 and S + 1, and
+    the planned form through K4, on the reference's keys: byte-equal to plain.
+    The plain versions run once, on the largest of these batches."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
     bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
     t0 = time.time()
-    plain_acc = cmux.blind_rotate_fused_ref(acc_t, bara_t, bk, sh, params)
-    err = expect_equal(f"blind_rotate 110 B={big}",
-                       cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params), plain_acc)
-    err = max(err, expect_equal(f"blind_rotate_ks 110 B={big}",
-                                cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params),
-                                cmux.keyswitch_ref(plain_acc, tks, params)))
+    forms = [f for f in cmux.CMUX_FORMS if cmux.cmux_smem_bytes(params.N, *f) <= cmux.SMEM_MAX]
+    err, held = 0, []
+    batches = sorted({b for S, _ in forms for b in (1, S - 1, S + 1) if b > 0})
+    acc, bara = bs._prepare_acc(x[:batches[-1]], gates.MU, cloud)
+    acc_all, bara_all = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
+    dec_all = bs.gadget_decompose(acc, params).permute(1, 2, 0).contiguous()
+    want_all = {"cmux_delta": cmux.cmux_delta_ref(dec_all, bk[0], sh[0], params),
+                "blind_rotate_step": cmux.blind_rotate_step_ref(acc_all, bara_all[:1], bk[0], sh[0],
+                                                                params),
+                "blind_rotate": cmux.blind_rotate_fused_ref(acc_all, bara_all, bk, sh, params)}
+    for B in batches:                   # the samples are independent: a batch is a prefix
+        acc_t, bara_t = acc_all[:, :, :B].contiguous(), bara_all[:, :B].contiguous()
+        dec = dec_all[:, :, :B].contiguous()
+        want = {name: w[:, :, :B].contiguous() for name, w in want_all.items()}
+        for form in forms:
+            if B not in (1, form[0] - 1, form[0] + 1):
+                continue
+            got = {"cmux_delta": cmux.cmux_delta(dec, bk[0], sh[0], params, form=form),
+                   "blind_rotate_step": cmux.blind_rotate_step(acc_t, bara_t[:1], bk[0], sh[0],
+                                                               params, form=form),
+                   "blind_rotate": cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params, form=form)}
+            for name in want:
+                err = max(err, expect_equal(f"{name} 110 B={B} form {form}", got[name], want[name]))
+            held.append(f"B={B} {form}")
+        err = max(err, expect_equal(
+            f"blind_rotate_ks 110 B={B}", cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params),
+            cmux.keyswitch_ref(want["blind_rotate"], tks, params)))
     torch.cuda.synchronize()
-    log(f"[kernels] blind_rotate and blind_rotate_ks PARAMS_110 B={big} (one above "
-        f"SMALL_BATCH_MAX, the first batch they are given): byte-equal to plain "
-        f"(max |err| {err}; {time.time() - t0:.1f} s)")
+    log(f"[kernels] cmux_delta, blind_rotate_step, blind_rotate in every form (S samples a block, "
+        f"key buffers) at ragged batches [{', '.join(held)}] and blind_rotate_ks in the planned "
+        f"form: byte-equal to plain (max |err| {err}; {time.time() - t0:.1f} s)")
 
 
 def phase_k5(sk, x, smi: str) -> dict:
@@ -502,6 +606,7 @@ def phase_k5(sk, x, smi: str) -> dict:
         f"{limit['bound_ms']:.4f} ms by {limit['bound_by']}; with the key switch {ks_ms:.3f} ms "
         f"({smi})")
     xs = lwe_concat([x] * -(-max(SWEEP) // x.b.shape[0]))
+    sweep = {}
     for B in SWEEP:
         acc, bara = bs._prepare_acc(xs[:B], gates.MU, cloud)
         acc_p, acc_t, bara_t = packed(acc), acc.permute(1, 2, 0), bara.T
@@ -518,14 +623,31 @@ def phase_k5(sk, x, smi: str) -> dict:
                                       for name, cluster in forms.items()) + ")"
         k3 = cuda_ms(lambda: cmux.blind_rotate_fused(acc_t, bara_t, cloud.bk_rows,
                                                      cloud.bk_rows_shoup, params), 3)
+        rows3 = cmux._acc_rows(acc_t, params)
+        k3_forms = ", ".join(
+            f"{form} " + format(cuda_ms(lambda: cmux._launch_rotate(
+                rows3, bara_b, cloud.bk_rows, cloud.bk_rows_shoup, params, form), 3), ".3f")
+            for form in cmux.CMUX_FORMS
+            if cmux.cmux_smem_bytes(params.N, *form) <= cmux.SMEM_MAX)
         k5ks = cuda_ms(lambda: cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks,
                                                                params), 3)
         k4 = cuda_ms(lambda: cmux.blind_rotate_ks_fused(acc_t, bara_t, cloud.bk_rows,
                                                         cloud.bk_rows_shoup, tks, params), 3)
-        log(f"[kernels] sweep PARAMS_110 B={B}: K5 {k5:.3f} ms{forced}, K3 {k3:.3f} ms; "
-            f"K5 + key switch {k5ks:.3f} ms, K4 {k4:.3f} ms ({smi})")
+        work = bound(2 * nbytes(acc_t) + nbytes(bara_t, bk, sh), cmux_seconds(params, B, params.n))
+        route = "K5" if bs.small_batch(B) else "K3/K4"
+        taken, other = (k5ks, k4) if bs.small_batch(B) else (k4, k5ks)
+        if taken > ROUTE_SLACK * other:
+            raise AssertionError(f"B={B}: small_batch() routes to {route}, {taken:.3f} ms with the "
+                                 f"key switch, but the other kernel takes {other:.3f} ms")
+        sweep[B] = {"k5_ms": k5, "k3_ms": k3, "k5_ks_ms": k5ks, "k4_ms": k4, "route": route, **work}
+        log(f"[kernels] sweep PARAMS_110 B={B}: K5 {k5:.3f} ms{forced}, K3 {k3:.3f} ms (forms, "
+            f"(samples a block, key buffers): {k3_forms}); K5 + key switch {k5ks:.3f} ms, "
+            f"K4 {k4:.3f} ms; the bootstrap takes {route}; bound of the blind rotate {work['bound_ms']:.3f} ms by "
+            f"{work['bound_by']}: K5 at {100 * work['bound_ms'] / k5:.1f} %, K3 at "
+            f"{100 * work['bound_ms'] / k3:.1f} % ({smi})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None,
-            "us_per_step": ms / params.n * 1e3, "shape": "PARAMS_110 B=1"}
+            "us_per_step": ms / params.n * 1e3, "shape": "PARAMS_110 B=1",
+            "sweep": {str(b): r for b, r in sweep.items()}}
 
 
 def _hash(ct) -> str:
@@ -555,8 +677,9 @@ def check_and(sk, label: str, x, y, want_bits) -> None:
 
 def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     """The gate path on the card: the batch-256 AND, fused and split routes,
-    and the golden 8-input AND; then a batch one above SMALL_BATCH_MAX, which
-    takes the one-block-per-sample kernels. Returns each run's launch counts."""
+    and the golden 8-input AND; then a batch one above SMALL_BATCH_MAX. Each
+    takes the kernels bootstrap.small_batch() picks for its size. Returns each
+    run's launch counts."""
     import tfhe_tpu_torch as tt
     from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.core import bootstrap as bs
@@ -579,9 +702,10 @@ def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     if digest != golden["sha256"]:
         raise AssertionError(f"golden AND SHA-256 {digest} != {golden['sha256']}")
     log(f"[main] golden 8-input AND matches tfhe_tpu's SHA-256 {digest}")
+    # the golden AND (8 samples) takes K5; the batch takes what small_batch() says
     small = ("blind_rotate_fused_packed", "keyswitch")
     large = ("blind_rotate_ks_fused", "blind_rotate_fused", "keyswitch")
-    for name in small + (() if BATCH <= bs.SMALL_BATCH_MAX else large):
+    for name in small + (() if bs.small_batch(BATCH) else large):
         if launches[name] < 1:
             raise AssertionError(f"the batch-{BATCH} AND and the golden AND did not launch {name}")
 

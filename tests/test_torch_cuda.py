@@ -6,6 +6,9 @@ installed; tests/conftest.py imports jax, so run it there without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +17,7 @@ import tfhe_tpu_torch as tt
 from tfhe_tpu_torch import arith, config, gates, ntt
 from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core.keys import bk_rows_layout
-from tfhe_tpu_torch.ops import cmux, cmux_packed
+from tfhe_tpu_torch.ops import _build, cmux, cmux_packed
 
 pytestmark = pytest.mark.cuda
 
@@ -70,6 +73,65 @@ def test_kernels_match_plain(cuda, params):
     assert cmux.LAUNCHES == {"cmux_delta": 1, "blind_rotate_step": 1,
                              "blind_rotate_fused": 1, "blind_rotate_ks_fused": 1,
                              "blind_rotate_fused_packed": 0, "keyswitch": 1}
+
+
+@pytest.mark.parametrize("params", [tt.PARAMS_TOY, tt.PARAMS_SMALL], ids=["toy", "small"])
+@pytest.mark.parametrize("form", cmux.CMUX_FORMS, ids=str)
+def test_forms_match_plain_at_ragged_batches(cuda, params, form):
+    """Every form of the kernels that hold S samples a block (K1, K2, K3),
+    forced, at batches that fill the last block (2 * S) and leave it short
+    (1, S - 1, S + 1): byte-equal to the plain versions."""
+    S = form[0]
+    rng = np.random.RandomState(params.N + S)
+    bk, sh = _random_bk(params, params.n, rng, cuda)
+    for B in sorted({1, S - 1, S + 1, 2 * S} - {0}):
+        dec_t = _i32(rng, (params.kpl, params.N, B), -params.halfBg, params.halfBg).to(cuda)
+        acc_t = _i32(rng, (2, params.N, B)).to(cuda)
+        bara = _i32(rng, (params.n, B), 0, 2 * params.N).to(cuda)
+        pairs = [
+            (cmux.cmux_delta(dec_t, bk[0], sh[0], params, form=form),
+             cmux.cmux_delta_ref(dec_t, bk[0], sh[0], params)),
+            (cmux.blind_rotate_step(acc_t, bara[:1], bk[0], sh[0], params, form=form),
+             cmux.blind_rotate_step_ref(acc_t, bara[:1], bk[0], sh[0], params)),
+            (cmux.blind_rotate_fused(acc_t, bara, bk, sh, params, form=form),
+             cmux.blind_rotate_fused_ref(acc_t, bara, bk, sh, params)),
+        ]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            assert got.dtype == want.dtype and torch.equal(got, want), (form, B)
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 512, 1024, 2048])
+def test_planned_form_at_every_ring_size(cuda, N):
+    """The form blind_rotate_plan picks at each N the kernels take: its
+    shared memory as the Python plan counts it, and K1 and K3 byte-equal to
+    plain on a batch that leaves the last block short."""
+    params = dataclasses.replace(tt.PARAMS_TOY, N=N, n=3)
+    S, nbuf = cmux.blind_rotate_plan(N)
+    size = ctypes.c_int(0)
+    _build.check(_build.library().tfhe_cmux_smem_bytes(N, S, nbuf, ctypes.byref(size)))
+    assert size.value == cmux.cmux_smem_bytes(N, S, nbuf) <= cmux.SMEM_MAX
+    rng = np.random.RandomState(N)
+    bk, sh = _random_bk(params, params.n, rng, cuda)
+    dec_t = _i32(rng, (params.kpl, N, 5), -params.halfBg, params.halfBg).to(cuda)
+    acc_t = _i32(rng, (2, N, 5)).to(cuda)
+    bara = _i32(rng, (params.n, 5), 0, 2 * N).to(cuda)
+    assert torch.equal(cmux.cmux_delta(dec_t, bk[0], sh[0], params),
+                       cmux.cmux_delta_ref(dec_t, bk[0], sh[0], params))
+    assert torch.equal(cmux.blind_rotate_fused(acc_t, bara, bk, sh, params),
+                       cmux.blind_rotate_fused_ref(acc_t, bara, bk, sh, params))
+
+
+def test_a_form_that_does_not_fit_is_refused(cuda):
+    """Two samples with a double key buffer do not fit a block at N = 2048:
+    the entry point reports an error and the wrapper raises."""
+    params = dataclasses.replace(tt.PARAMS_TOY, N=2048, n=1)
+    rng = np.random.RandomState(1)
+    bk, sh = _random_bk(params, 1, rng, cuda)
+    acc_t = _i32(rng, (2, 2048, 2)).to(cuda)
+    bara = _i32(rng, (1, 2), 0, 4096).to(cuda)
+    with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
+        cmux.blind_rotate_fused(acc_t, bara, bk, sh, params, form=(2, 2))
 
 
 def _ks_inputs(params, B, rng, kind, device):

@@ -14,10 +14,10 @@ starts here, where there is no compiler. Tolerance: exact (integers).
 - the gather arm's partial sums and the tensor-core arm's fragments
   (``mma.m16n8k32`` register layout, the 4x4 byte transpose, the column and
   coefficient permutations) against ``keyswitch_ref``;
-- the pass-wise transforms of ``blind_rotate_small.cu`` (forward: 8 values a
-  thread and three stages a pass, the stages left over with the MAC; inverse:
-  4 values and two stages; padded rows; lazy reduction) against ``ntt.ntt_forward_rows`` and
-  ``ntt.ntt_inverse_rows``;
+- the pass-wise transforms of ``ntt_passes.cuh`` as ``blind_rotate_small.cu``
+  drives them (forward: 8 values a thread and three stages a pass, the stages
+  left over with the MAC; inverse: 4 values and two stages; padded rows; lazy
+  reduction) against ``ntt.ntt_forward_rows`` and ``ntt.ntt_inverse_rows``;
 - the default device of ``keygen``.
 """
 import numpy as np
@@ -234,7 +234,7 @@ def _pad(e):
 
 
 def _lazy_mul(x, w, w_sh, p):
-    """lazy_mul of blind_rotate_small.cu in uint32 arithmetic: x * w mod p up
+    """lazy_mul of ntt_passes.cuh in uint32 arithmetic: x * w mod p up
     to one p, for any 32-bit x."""
     assert 0 <= x < 2 ** 32
     r = (x * w - ((x * w_sh) >> 32) * p) % 2 ** 32
@@ -248,7 +248,7 @@ def _fold(x, m):
 
 
 def _fwd_pass(v, s0, hi, tabs, p):
-    """fwd_pass of blind_rotate_small.cu on one thread's 8 values in [0, 4p)."""
+    """fwd_pass of ntt_passes.cuh on one thread's 8 values in [0, 4p)."""
     psi, psi_sh = tabs["psi_br"], tabs["psi_br_shoup"]
     for a in range(3):
         half = 4 >> a
@@ -263,7 +263,7 @@ def _fwd_pass(v, s0, hi, tabs, p):
 
 
 def _fwd_tail(v, tail, g, N, tabs, p):
-    """fwd_tail of blind_rotate_small.cu: the last `tail` forward stages on the
+    """fwd_tail of ntt_passes.cuh: the last `tail` forward stages on the
     4 neighbouring values of group g."""
     psi, psi_sh = tabs["psi_br"], tabs["psi_br_shoup"]
     for a in range(2 - tail, 2):
@@ -279,7 +279,7 @@ def _fwd_tail(v, tail, g, N, tabs, p):
 
 
 def _inv_pass(v, lt0, a_first, hi, N, logN, tabs, p):
-    """inv_pass of blind_rotate_small.cu on one thread's 4 values in [0, 2p)."""
+    """inv_pass of ntt_passes.cuh on one thread's 4 values in [0, 2p)."""
     ipsi, ipsi_sh = tabs["ipsi_br"], tabs["ipsi_br_shoup"]
     for a in range(a_first, 2):
         half, lt = 1 << a, lt0 + a

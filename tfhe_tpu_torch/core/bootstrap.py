@@ -12,11 +12,13 @@ and take these plain pieces for CPU tensors. Every route gives the same bits:
   and key switch;
 - split (default on the CPU): a blind-rotate wrapper, then
   ``sample_extract`` and the one-hot int8 matmul ``key_switch``;
-- a flat batch of at most ``SMALL_BATCH_MAX`` samples (every stage of a
-  serial circuit, and the gate batches up to that size) takes the
-  small-batch blind rotate of ``ops.cmux_packed`` (K5, a cluster of four or
-  two CTAs per sample), a larger one the one-block-per-sample kernels of
-  ``ops.cmux`` (K3/K4).
+- the blind rotate of a flat batch goes to the kernel that is faster for its
+  size (``small_batch``): the small-batch kernel of ``ops.cmux_packed`` (K5,
+  a cluster of four or two CTAs per sample: every stage of a serial circuit,
+  and the gate batches that leave the other kernel's last wave mostly empty)
+  or the kernels of ``ops.cmux`` that hold two whole samples in a block
+  (K3/K4: every batch above ``SMALL_BATCH_MAX``, and the batches below it
+  that fill their last wave).
 """
 from __future__ import annotations
 
@@ -29,15 +31,33 @@ from ..numeric import i32, mod_switch_from_torus32
 from ..ops import cmux, cmux_packed
 from .lwe import LweCiphertext
 
-# Largest flat batch that takes the small-batch blind rotate. Measured on an
-# H100 (132 SMs, 700 W) at PARAMS_110 by chip_smoke.py's sweep: K5 beats K3 at
-# every B measured, 1 to 2048, by a ratio that does not close (B = 528: 14.4
-# against 24.3 ms; 1056: 28.5 against 47.6; 2048: 56.3 against 93.6): beyond
-# one wave K5 works on 132 samples at once in 3.6-3.8 ms, K3 on 132 in 6.0-7.9
-# ms. No crossover was found, so the constant is the top of what was measured;
-# a larger batch keeps the one-block-per-sample kernels until they are
-# redesigned (PERF.md, "Findings"; ROADMAP.md).
-SMALL_BATCH_MAX = 2048
+# Which blind rotate a flat batch takes. Measured on an H100 (132 SMs, 700 W)
+# at PARAMS_110 by chip_smoke.py's sweep of B = 1 to 4096: both kernels work
+# in waves. K5 holds K5_WAVE = 132 samples at once (two CTAs a sample, two
+# CTAs an SM) and a wave takes 3.5-3.7 ms; a last wave of at most half that
+# (one CTA an SM) 1.9-2.3 ms. K3/K4 hold K3_WAVE = 264 (two samples a block,
+# one block an SM) and a wave takes 6.1-6.2 ms: 23.3 us a sample against
+# K5's 27, but a wave twice as long. So K3/K4 win wherever their last wave
+# is full enough (B = 264: 6.15 against 7.36 ms; 528: 12.34 against 14.38;
+# 792: 18.49 against 21.47) and lose between (192: 6.16 against 5.70; 265:
+# 12.34 against 9.23; 660: 18.58 against 17.97), and from SMALL_BATCH_MAX on
+# they win or tie at every batch (1056: 24.73 against 28.43; 2048: 49.31
+# against 56.30; 4096: 98.5 against 110.2). small_batch() compares the two
+# sums of waves with these times; the sweep prints its choice beside the
+# measured times (PERF.md, "Findings").
+SMALL_BATCH_MAX = 858
+K5_WAVE, K5_WAVE_MS, K5_TAIL_MS = 132, 3.6, 2.1
+K3_WAVE, K3_WAVE_MS = 264, 6.2
+
+
+def small_batch(B: int) -> bool:
+    """True when the small-batch blind rotate (K5) is the faster one for a
+    flat batch of B samples, by the measured wave times above."""
+    if B > SMALL_BATCH_MAX:
+        return False
+    full, tail = divmod(B, K5_WAVE)
+    last = 0.0 if tail == 0 else K5_TAIL_MS if 2 * tail <= K5_WAVE else K5_WAVE_MS
+    return full * K5_WAVE_MS + last <= -(-B // K3_WAVE) * K3_WAVE_MS
 
 
 # ------------------------------------------------------------------ pieces
@@ -210,7 +230,7 @@ def _bootstrap_variance(params: TfheParams) -> float:
 
 
 def _small(x: LweCiphertext, params: TfheParams) -> bool:
-    return x.b.shape[0] <= SMALL_BATCH_MAX and params.N <= cmux_packed.N_MAX
+    return params.N <= cmux_packed.N_MAX and small_batch(x.b.shape[0])
 
 
 def bootstrap_woks(x: LweCiphertext, mu, cloud):

@@ -5,7 +5,7 @@
 // Replaces tfhe_tpu/ops/cmux_pallas_packed.py:blind_rotate_fused_packed
 // (:259, pallas_call :283, body _scan_kernel_packed :234 and _cmux_iter :183):
 // all n CMux steps of a blind rotate for the flat batches that
-// core/bootstrap.py routes here (B <= SMALL_BATCH_MAX). It computes the same
+// core/bootstrap.py routes here (small_batch()). It computes the same
 // accumulator as blind_rotate_kernel in cmux.cu, bit for bit. The TPU
 // kernel's tile layout, roll ladder and twiddle planes exist to fill 128-lane
 // vector registers and are not carried over: the rotation is index arithmetic.
@@ -63,13 +63,24 @@
 
 #include <cstdint>
 
-#include "extern_product.cuh"
+#include "ntt_passes.cuh"
 
 namespace cg = cooperative_groups;
 using tfhe::kKpl;
 using tfhe::kOut;
 using tfhe::kPrimes;
+using tfhe::fold;
+using tfhe::fwd_pass;
+using tfhe::fwd_tail;
+using tfhe::inv_pass;
+using tfhe::lazy_mul;
+using tfhe::mbar_arrive_expect_tx;
+using tfhe::mbar_init;
+using tfhe::mbar_wait;
 using tfhe::mulm;
+using tfhe::pad;
+using tfhe::row_words;
+using tfhe::shared_u32;
 using tfhe::subm;
 
 extern "C" int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t* r,
@@ -78,149 +89,16 @@ extern "C" int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* su
 
 namespace {
 
-// A transform row in shared memory: element e at word e + e/16, which keeps
-// the strided reads and writes of every pass to two-way bank conflicts at
-// most. For the element sets of the passes below (base + j*u, j < 8 or 4, u a
-// power of two, base = hi*8u + lo or hi*4u + lo with lo < u)
-// pad(base + j*u) = pad(base) + pad(j*u), a constant offset once the pass is
-// unrolled.
-__device__ __forceinline__ int pad(int e) { return e + (e >> 4); }
-__host__ __device__ constexpr int row_words(int N) { return N + (N >> 4); }
-
-// Lazy reduction (both primes are below 2^30, so 4p fits in 32 bits): inside
-// the transforms values stay in [0, 4p) (forward) or [0, 2p) (inverse) and a
-// Shoup product skips its last conditional subtraction; the residues that
-// leave the inverse transform are reduced to [0, p), so they are the same
-// numbers as those of extern_product.cuh.
-// x * w mod p up to one p: in [0, 2p) for any 32-bit x.
-__device__ __forceinline__ uint32_t lazy_mul(uint32_t x, uint32_t w, uint32_t w_sh, uint32_t p) {
-  return x * w - __umulhi(x, w_sh) * p;
-}
-// x in [0, 2m) -> [0, m)
-__device__ __forceinline__ uint32_t fold(uint32_t x, uint32_t m) { return min(x, x - m); }
-
-// Forward stages s0, s0 + 1, s0 + 2 of the DIF transform of
-// extern_product.cuh:ntt_forward on the 8 values v[j] = x[hi*8u + lo + j*u],
-// u = N >> (s0 + 3): stage s0 + a pairs j with j + (4 >> a), and element
-// hi*8u + lo + j*u lies in group hi*2^a + (j >> (3 - a)) of that stage.
-// tw[i] = (psi_br[i], its Shoup twin). Values in and out in [0, 4p).
-__device__ __forceinline__ void fwd_pass(uint32_t (&v)[8], int s0, int hi, const uint2* tw,
-                                         uint32_t p) {
-  const uint32_t p2 = 2u * p;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const uint2* t = tw + (1 << (s0 + a)) + (hi << a);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if ((j & (4 >> a)) == 0) {
-        const uint2 w = t[j >> (3 - a)];
-        const uint32_t x = fold(v[j], p2);
-        const uint32_t wv = lazy_mul(v[j + (4 >> a)], w.x, w.y, p);
-        v[j] = x + wv;
-        v[j + (4 >> a)] = x + p2 - wv;
-      }
-    }
-  }
-}
-
-// The last `tail` (0, 1 or 2) forward stages on the 4 neighbouring values
-// v[j] = x[4*g + j]: stage logN - 2 pairs j with j + 2 (group g), stage
-// logN - 1 pairs j with j + 1 (group 2g + (j >> 1)).
-__device__ __forceinline__ void fwd_tail(uint32_t (&v)[4], int tail, int g, int N,
-                                         const uint2* tw, uint32_t p) {
-  const uint32_t p2 = 2u * p;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    if (a >= 2 - tail) {
-      const uint2* t = tw + (N >> (2 - a)) + (g << a);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if ((j & (2 >> a)) == 0) {
-          const uint2 w = t[j >> (2 - a)];
-          const uint32_t x = fold(v[j], p2);
-          const uint32_t wv = lazy_mul(v[j + (2 >> a)], w.x, w.y, p);
-          v[j] = x + wv;
-          v[j + (2 >> a)] = x + p2 - wv;
-        }
-      }
-    }
-  }
-}
-
-// Inverse stages lt0 + a, a = a_first .. 1, of ntt_inverse on the 4 values
-// v[j] = x[hi*4u + lo + j*u], u = 1 << lt0: stage lt0 + a pairs j with
-// j + (1 << a); the element lies in group hi*(2 >> a) + (j >> (a + 1)).
-// Values in and out in [0, 2p); the last stage (lt = logN - 1) carries N^-1
-// as ntt_inverse does and leaves residues in [0, p).
-__device__ __forceinline__ void inv_pass(uint32_t (&v)[4], int lt0, int a_first, int hi, int N,
-                                         int logN, const uint2* tw, const tfhe::Prime& P) {
-  const uint32_t p2 = 2u * P.p;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    if (a >= a_first) {
-      const int lt = lt0 + a;
-      if (lt == logN - 1) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if ((j & (1 << a)) == 0) {
-            const uint32_t x = v[j], y = v[j + (1 << a)];
-            v[j] = fold(lazy_mul(x + y, P.ninv, P.ninv_sh, P.p), P.p);
-            v[j + (1 << a)] = fold(lazy_mul(x + p2 - y, P.ip1, P.ip1_sh, P.p), P.p);
-          }
-        }
-      } else {
-        const uint2* t = tw + (N >> (lt + 1)) + hi * (2 >> a);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if ((j & (1 << a)) == 0) {
-            const uint2 w = t[j >> (a + 1)];
-            const uint32_t x = v[j], y = v[j + (1 << a)];
-            v[j] = fold(x + y, p2);
-            v[j + (1 << a)] = lazy_mul(x + p2 - y, w.x, w.y, P.p);
-          }
-        }
-      }
-    }
-  }
-}
-
 // ---- shared-memory barriers with transaction counts, and stores into
 // another CTA of the cluster that complete on the receiver's barrier: the
 // receiver waits for the bytes it expects, with no fence and no cluster-wide
 // barrier
-
-__device__ __forceinline__ uint32_t shared_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // the shared::cluster address of `addr` (a shared::cta address) in CTA `rank`
 __device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
 }
 
 __device__ __forceinline__ void st_async(uint32_t remote_addr, uint32_t v, uint32_t remote_bar) {

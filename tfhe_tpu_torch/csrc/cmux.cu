@@ -13,23 +13,26 @@
 //                          switch, blind_rotate_small.cu its own blind rotate
 //                          and then the key switch (through tfhe_keyswitch).
 //
-// Blind rotate (cmux_delta_kernel, blind_rotate_kernel): one block of N/2
-// threads per sample. The accumulator int32[2][N] (8 KB at N = 1024) stays in
-// shared memory for all n steps, beside the 4 digit rows (16 KB). The
+// Blind rotate (cmux_delta_kernel, blind_rotate_kernel): one block holds S
+// whole samples (both polynomials, both primes), so nothing crosses blocks,
+// and the S samples walk the n steps together. The accumulators int32[S][2][N]
+// stay in shared memory for all n steps beside the samples' digit rows, the
+// twiddles of both primes and, in the staged form, the key slices. The
 // per-sample X^a rotation is index arithmetic, as in the reference's
-// torusPolynomialMulByXai, not the TPU's roll bit-ladder (:333-350).
+// torusPolynomialMulByXai, not the TPU's roll bit-ladder (:333-350). A block
+// whose samples run past the batch computes on zeros for them, loads nothing
+// of theirs and stores nothing.
 //
-// What bounds the blind rotate on an H100: every block streams the whole
-// bootstrapping key, value and Shoup twin, 2 x 32.8 MB = 65.5 MB at
-// PARAMS_110, once per bootstrap. At B = 256 that is 256 passes over a key
-// larger than the 50 MB L2. Blocks run the steps in roughly the same order, so
-// most slices are shared in L2 by the blocks in flight; the arithmetic (2
-// primes x 6 transforms of 10 stages, each behind a barrier) is the other
-// bound: 12.3 ms at B = 256 against 3.9 ms for its int32 operations alone.
-// blind_rotate_small.cu now does the same work faster at every batch size
-// measured (its transforms keep three stages in registers); carrying that
-// design over to this kernel, and sharing one key read between several
-// samples of a block, is the next work on it.
+// What bounds the blind rotate on an H100: int32 instructions. Every sample
+// needs the whole bootstrapping key, value and Shoup twin, 2 x 32.8 MB =
+// 65.5 MB at PARAMS_110, once per bootstrap; blocks run the steps in roughly
+// the same order, so a slice is shared in L2 by the blocks in flight, and a
+// block that stages it reads it once for its S samples. The transforms,
+// the forms (S samples a block, key slices staged in shared memory or read
+// from L2) and what each costs are described in extern_product.cuh;
+// ops/cmux.py blind_rotate_plan chooses the form by N. 6.15 ms at B = 256 and
+// 49.3 ms at 2048 at PARAMS_110 on an H100 (700 W); its int32 operations alone
+// would take 3.9 and 31.3 ms at the card's peak, 64 % of that.
 //
 // Key switch (ks_gather_kernel, ks_mma_kernel, ks_finish_kernel): the TPU
 // version multiplies a one-hot digit matrix by the int8 limb table on the
@@ -58,95 +61,110 @@
 
 using tfhe::kKpl;
 using tfhe::kOut;
+using tfhe::kPrimes;
 
 namespace {
 
 constexpr int kSmemDefault = 48 * 1024;
 
+template <class L>
+constexpr int min_blocks() { return L::kNbuf == 0 && L::NT <= 512 ? 2 : 1; }
+
 // One external product per sample: dec int32[B][4][N] signed digits in
-// [-Bg/2, Bg/2), out int32[B][2][N].
-__global__ void cmux_delta_kernel(const int32_t* __restrict__ dec, const uint32_t* __restrict__ bk,
-                                  const uint32_t* __restrict__ bksh,
-                                  const uint32_t* __restrict__ tab, int32_t* __restrict__ out,
-                                  int N, int logN, uint32_t half_bg) {
-  extern __shared__ uint32_t smem[];
-  const int b = threadIdx.x;
-  const int half = N >> 1;
-  const int32_t* d = dec + (size_t)blockIdx.x * kKpl * N;
-  auto fill = [&](uint32_t* dig) {
+// [-Bg/2, Bg/2), out int32[B][2][N]; bk/bksh uint32[2][N][8]. Block b holds
+// samples b*S .. b*S + S-1.
+template <int LOGN, int S, int NBUF>
+__global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
+                                  (min_blocks<tfhe::CmuxBlock<LOGN, S, NBUF>>()))
+    cmux_delta_kernel(const int32_t* __restrict__ dec, const uint32_t* __restrict__ bk,
+                      const uint32_t* __restrict__ bksh, const uint32_t* __restrict__ tab,
+                      int32_t* __restrict__ out, int B) {
+  using L = tfhe::CmuxBlock<LOGN, S, NBUF>;
+  constexpr int N = L::N;
+  extern __shared__ __align__(128) uint32_t smem[];
+  const int first = blockIdx.x * S;
+  tfhe::cmux_block_setup<L>(smem, tab);
+  tfhe::cmux_fetch_key<L>(smem, bk, bksh, 0, kPrimes);
+  tfhe::cmux_fetch_key<L>(smem, bk, bksh, 1, NBUF > 1 ? kPrimes : 0);
+  __syncthreads();
+  auto digits = [&](int s, int row, int q, uint32_t p, uint32_t (&v)[8]) {
+    const int32_t* d = dec + ((size_t)(first + s) * kKpl + row) * N + q;
 #pragma unroll
-    for (int r = 0; r < kKpl; ++r) {
-      dig[r * N + b] = (uint32_t)d[r * N + b] + half_bg;
-      dig[r * N + b + half] = (uint32_t)d[r * N + b + half] + half_bg;
+    for (int j = 0; j < 8; ++j) {
+      const int32_t x = first + s < B ? __ldg(d + j * L::EIGHTH) : 0;
+      v[j] = (uint32_t)x + 2u * p;                  // |x| <= Bg/2 < p: in (p, 3p)
     }
   };
-  uint32_t delta[kOut][2];
-  tfhe::extern_product(fill, bk, bksh, tab, N, logN, smem, delta);
-  uint32_t* o = reinterpret_cast<uint32_t*>(out) + (size_t)blockIdx.x * kOut * N;
+  uint32_t delta[4];
+  tfhe::extern_product<LOGN, S, NBUF>(digits, smem, bk, bksh, 0, 1, delta);
+  const int t = threadIdx.x;            // polynomial (t / (N/4)) % 2 of sample t / (N/2)
+  if (first + t / L::HALF < B) {
+    uint32_t* o = reinterpret_cast<uint32_t*>(out) + (size_t)first * kOut * N +
+                  t / L::QUARTER * N + t % L::QUARTER;
 #pragma unroll
-  for (int c = 0; c < kOut; ++c) {
-    o[c * N + b] = delta[c][0];
-    o[c * N + b + half] = delta[c][1];
+    for (int j = 0; j < 4; ++j) o[j * L::QUARTER] = delta[j];
   }
 }
 
 // n CMux steps: acc int32[B][2][N] in place, bara int32[B][n] in [0, 2N),
-// bk/bksh uint32[n][2][N][8].
-__global__ void blind_rotate_kernel(int32_t* __restrict__ acc_io, const int32_t* __restrict__ bara,
-                                    const uint32_t* __restrict__ bk,
-                                    const uint32_t* __restrict__ bksh,
-                                    const uint32_t* __restrict__ tab, int n, int N, int logN,
-                                    int bgbit, uint32_t offset) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* acc = smem;               // [2][N]
-  uint32_t* dig = smem + kOut * N;    // [4][N]
-  const int b = threadIdx.x;
-  const int half = N >> 1;
+// bk/bksh uint32[n][2][N][8]. Block b holds samples b*S .. b*S + S-1.
+template <int LOGN, int S, int NBUF>
+__global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
+                                  (min_blocks<tfhe::CmuxBlock<LOGN, S, NBUF>>()))
+    blind_rotate_kernel(int32_t* __restrict__ acc_io, const int32_t* __restrict__ bara,
+                        const uint32_t* __restrict__ bk, const uint32_t* __restrict__ bksh,
+                        const uint32_t* __restrict__ tab, int B, int n, int bgbit,
+                        uint32_t offset) {
+  using L = tfhe::CmuxBlock<LOGN, S, NBUF>;
+  constexpr int N = L::N;
+  extern __shared__ __align__(128) uint32_t smem[];
+  uint32_t* acc = smem + L::ACC;                    // [S][2][N]
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * S;
   const uint32_t mask = (1u << bgbit) - 1u;
-  uint32_t* g = reinterpret_cast<uint32_t*>(acc_io) + (size_t)blockIdx.x * kOut * N;
-  const int32_t* a_s = bara + (size_t)blockIdx.x * n;
-  const size_t slice = (size_t)tfhe::kPrimes * N * 8;
+  const uint32_t half_bg = 1u << (bgbit - 1);
+  uint32_t* g = reinterpret_cast<uint32_t*>(acc_io) + (size_t)first * kOut * N;
 
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) {
-    acc[c * N + b] = g[c * N + b];
-    acc[c * N + b + half] = g[c * N + b + half];
+  tfhe::cmux_block_setup<L>(smem, tab);
+  tfhe::cmux_fetch_key<L>(smem, bk, bksh, 0, kPrimes * n);
+  tfhe::cmux_fetch_key<L>(smem, bk, bksh, 1, NBUF > 1 ? kPrimes * n : 0);
+  for (int i = tid; i < S * kOut * N; i += L::NT) {
+    acc[i] = first + i / (kOut * N) < B ? g[i] : 0u;
   }
+  // the rotation amounts of the sample this thread transforms, one step ahead
+  // (-1: a sample past the batch, which rotates by nothing)
+  const int mine = first + tid / L::HALF < B ? first + tid / L::HALF : -1;
+  int a_next = mine >= 0 ? __ldg(bara + (size_t)mine * n) : 0;
   __syncthreads();
 
-  for (int j = 0; j < n; ++j) {
-    const int a = __ldg(a_s + j);
-    // digits of X^a * acc - acc, row c*l + p (offset form, in [0, Bg))
-    auto fill = [&](uint32_t* dg) {
+  for (int step = 0; step < n; ++step) {
+    const int a = a_next;
+    a_next = mine >= 0 && step + 1 < n ? __ldg(bara + (size_t)mine * n + step + 1) : 0;
+    // signed digits of X^a * acc - acc, row c*l + d, as residues mod p
+    auto digits = [&](int s, int row, int q, uint32_t p, uint32_t (&v)[8]) {
+      const uint32_t* ac = acc + (s * kOut + (row >> 1)) * N;
+      const int sh = 32 - ((row & 1) + 1) * bgbit;
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int i = b + q * half;
-          int d = i - a;
-          if (d < 0) d += 2 * N;
-          const bool neg = d >= N;
-          const uint32_t v = acc[c * N + (neg ? d - N : d)];
-          const uint32_t u = (neg ? 0u - v : v) - acc[c * N + i] + offset;
-          dg[(2 * c) * N + i] = (u >> (32 - bgbit)) & mask;
-          dg[(2 * c + 1) * N + i] = (u >> (32 - 2 * bgbit)) & mask;
-        }
+      for (int j = 0; j < 8; ++j) {
+        const int i = q + j * L::EIGHTH;
+        int d = i - a;
+        if (d < 0) d += 2 * N;
+        const bool neg = d >= N;
+        const uint32_t x = ac[neg ? d - N : d];
+        const uint32_t u = (neg ? 0u - x : x) - ac[i] + offset;
+        v[j] = ((u >> sh) & mask) + (2u * p - half_bg);     // digit - Bg/2, in (p, 3p)
       }
     };
-    uint32_t delta[kOut][2];
-    tfhe::extern_product(fill, bk + j * slice, bksh + j * slice, tab, N, logN, dig, delta);
+    uint32_t delta[4];
+    tfhe::extern_product<LOGN, S, NBUF>(digits, smem, bk, bksh, step, n, delta);
+    uint32_t* ac = acc + tid / L::QUARTER * N + tid % L::QUARTER;
 #pragma unroll
-    for (int c = 0; c < kOut; ++c) {
-      acc[c * N + b] += delta[c][0];
-      acc[c * N + b + half] += delta[c][1];
-    }
+    for (int j = 0; j < 4; ++j) ac[j * L::QUARTER] += delta[j];
     __syncthreads();
   }
 
-#pragma unroll
-  for (int c = 0; c < kOut; ++c) {
-    g[c * N + b] = acc[c * N + b];
-    g[c * N + b + half] = acc[c * N + b + half];
+  for (int i = tid; i < S * kOut * N; i += L::NT) {
+    if (first + i / (kOut * N) < B) g[i] = acc[i];
   }
 }
 
@@ -442,15 +460,94 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// allow_smem once per kernel and device (`allowed`: the kernel's flags, one
+// a device): the call costs several microseconds of host time, as much as a
+// launch, and a one-step launch is nothing else.
+constexpr int kDevices = 64;
+template <class K>
+cudaError_t allow_smem_once(bool (&allowed)[kDevices], K kernel, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && allowed[dev]) return cudaSuccess;
+  err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess && dev < kDevices) allowed[dev] = true;
+  return err;
+}
+
+// What a launch of one form does: the external product alone (dec != nullptr)
+// or n steps of the blind rotate; with smem_bytes != nullptr nothing is
+// launched and the form's shared-memory size is written there.
+struct CmuxCall {
+  const int32_t* dec;
+  int32_t* out;
+  int32_t* acc;
+  const int32_t* bara;
+  const uint32_t *bk, *bksh, *tab;
+  int B, n, bgbit;
+  uint32_t offset;
+  cudaStream_t stream;
+  int* smem_bytes;
+};
+
+template <int LOGN, int S, int NBUF>
+cudaError_t launch_form(const CmuxCall& c) {
+  using L = tfhe::CmuxBlock<LOGN, S, NBUF>;
+  if constexpr (L::BYTES > tfhe::kSmemMax) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (c.smem_bytes != nullptr) {
+      *c.smem_bytes = (int)L::BYTES;
+      return cudaSuccess;
+    }
+    static bool allowed[2][kDevices] = {};          // this form's two kernels
+    const int blocks = (c.B + S - 1) / S;
+    if (c.dec != nullptr) {
+      const cudaError_t err =
+          allow_smem_once(allowed[0], cmux_delta_kernel<LOGN, S, NBUF>, L::BYTES);
+      if (err != cudaSuccess) return err;
+      cmux_delta_kernel<LOGN, S, NBUF><<<blocks, L::NT, L::BYTES, c.stream>>>(
+          c.dec, c.bk, c.bksh, c.tab, c.out, c.B);
+    } else {
+      const cudaError_t err =
+          allow_smem_once(allowed[1], blind_rotate_kernel<LOGN, S, NBUF>, L::BYTES);
+      if (err != cudaSuccess) return err;
+      blind_rotate_kernel<LOGN, S, NBUF><<<blocks, L::NT, L::BYTES, c.stream>>>(
+          c.acc, c.bara, c.bk, c.bksh, c.tab, c.B, c.n, c.bgbit, c.offset);
+    }
+    return cudaGetLastError();
+  }
+}
+
+template <int LOGN>
+cudaError_t launch_logn(const CmuxCall& c, int S, int nbuf) {
+  if (S == 2 && nbuf == 2) return launch_form<LOGN, 2, 2>(c);
+  if (S == 1 && nbuf == 0) return launch_form<LOGN, 1, 0>(c);
+  return cudaErrorInvalidValue;
+}
+
+// The forms: S samples a block with nbuf key buffers in shared memory
+// (0: the product reads the key from L2): (2, 2) and (1, 0); ops/cmux.py
+// blind_rotate_plan chooses. A form that does not fit the block's shared
+// memory at this N, or does not exist, is an invalid value.
+cudaError_t launch_cmux(const CmuxCall& c, int N, int S, int nbuf) {
+  if (N < 64 || N > 2048 || (N & (N - 1)) || c.B < 1 || c.n < 1) return cudaErrorInvalidValue;
+  switch (log2i(N)) {
+    case 6: return launch_logn<6>(c, S, nbuf);
+    case 7: return launch_logn<7>(c, S, nbuf);
+    case 8: return launch_logn<8>(c, S, nbuf);
+    case 9: return launch_logn<9>(c, S, nbuf);
+    case 10: return launch_logn<10>(c, S, nbuf);
+    case 11: return launch_logn<11>(c, S, nbuf);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t launch_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                                 const uint32_t* bksh, const uint32_t* tab, int B, int n, int N,
-                                int bgbit, uint32_t offset, cudaStream_t stream) {
-  const size_t smem = (size_t)(kOut + kKpl) * N * sizeof(uint32_t);
-  cudaError_t err = allow_smem(blind_rotate_kernel, smem);
-  if (err != cudaSuccess) return err;
-  blind_rotate_kernel<<<B, N / 2, smem, stream>>>(acc, bara, bk, bksh, tab, n, N, log2i(N), bgbit,
-                                                  offset);
-  return cudaGetLastError();
+                                int bgbit, uint32_t offset, int S, int nbuf, cudaStream_t stream) {
+  const CmuxCall c{nullptr, nullptr, acc, bara, bk, bksh, tab, B, n, bgbit, offset, stream, nullptr};
+  return launch_cmux(c, N, S, nbuf);
 }
 
 }  // namespace
@@ -458,20 +555,25 @@ cudaError_t launch_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_
 extern "C" {
 
 int tfhe_cmux_delta(const int32_t* dec, const uint32_t* bk, const uint32_t* bksh,
-                    const uint32_t* tab, int32_t* out, int B, int N, int half_bg,
+                    const uint32_t* tab, int32_t* out, int B, int N, int S, int nbuf,
                     cudaStream_t stream) {
-  const size_t smem = (size_t)kKpl * N * sizeof(uint32_t);
-  cudaError_t err = allow_smem(cmux_delta_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cmux_delta_kernel<<<B, N / 2, smem, stream>>>(dec, bk, bksh, tab, out, N, log2i(N),
-                                                (uint32_t)half_bg);
-  return (int)cudaGetLastError();
+  const CmuxCall c{dec, out, nullptr, nullptr, bk, bksh, tab, B, 1, 0, 0u, stream, nullptr};
+  return (int)launch_cmux(c, N, S, nbuf);
 }
 
 int tfhe_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_t* bk, const uint32_t* bksh,
                       const uint32_t* tab, int B, int n, int N, int bgbit, unsigned int offset,
-                      cudaStream_t stream) {
-  return (int)launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
+                      int S, int nbuf, cudaStream_t stream) {
+  return (int)launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, S, nbuf,
+                                  stream);
+}
+
+// The shared memory, in bytes, of a block of the form (S, nbuf) at this N;
+// an error if the form does not exist or does not fit.
+int tfhe_cmux_smem_bytes(int N, int S, int nbuf, int* bytes) {
+  const CmuxCall c{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 0, 0u,
+                   nullptr, bytes};
+  return (int)launch_cmux(c, N, S, nbuf);
 }
 
 // Sample extract and key switch of acc int32[B][2][N] into r int32[B][C] and
@@ -505,10 +607,10 @@ int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t
 int tfhe_blind_rotate_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                          const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
                          int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N, int bgbit,
-                         unsigned int offset, int C, int t, int basebit,
+                         unsigned int offset, int S, int nbuf, int C, int t, int basebit,
                          unsigned int prec_offset, int mma, int split, cudaStream_t stream) {
   const cudaError_t err =
-      launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, stream);
+      launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, S, nbuf, stream);
   if (err != cudaSuccess) return (int)err;
   return tfhe_keyswitch(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset, mma, split,
                         stream);

@@ -15,6 +15,10 @@ of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]``.
 |                        | and key switch)                                 |
 | keyswitch              | the key-switch epilogue of the above, alone     |
 
+The blind-rotate kernels (K1-K4) hold S whole samples in a block, which walk
+the steps together and share each read of a key slice; ``blind_rotate_plan``
+picks the form (S, key buffers in shared memory) that fits the block at this
+N, and the last block of a batch that S does not divide holds fewer samples.
 The key-switch kernel has two arms behind one entry point
 (``keyswitch_plan``): a gather spread over the card for small batches and a
 one-hot int8 product on the tensor cores for large ones.
@@ -54,6 +58,17 @@ KS_MMA_ROWS = 128           # tensor-core arm: samples per block (csrc/cmux.cu k
 KS_MMA_COLS = 128           # tensor-core arm: table bytes per row per block (kMmaCols)
 KS_MMA_STEP = 32            # tensor-core arm: coefficients per product step
 
+# Forms of the kernels that hold S samples in a block (csrc/extern_product.cuh):
+# (S, key buffers in shared memory; 0 buffers: the product reads the key from
+# L2). Measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py's sweep: two
+# samples with a double buffer take 6.15 ms at B = 256 and 49.2 ms at 2048; one
+# sample without buffers, two blocks an SM, 7.5 and 57.3 ms (4.4 ms up to 132
+# samples, which the small-batch kernel does in 1.8-3.8). Two forms went after
+# that sweep: two samples without buffers (7.0 and 56.1 ms) and four samples
+# with one buffer (12.4 and 50.1 ms) (PERF.md).
+CMUX_FORMS = ((2, 2), (1, 0))
+SMEM_MAX = 232448           # bytes of shared memory a block may use on sm_90
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -82,7 +97,7 @@ def _twiddle_stack(N: int, half_bg: int) -> np.ndarray:
 
 
 def _kernel_constants(N: int) -> np.ndarray:
-    """The 16 uint32 constants after the twiddles (csrc/extern_product.cuh)."""
+    """The 16 uint32 constants after the twiddles (csrc/ntt_passes.cuh)."""
     vals = []
     for p in ntt.PRIMES:
         t = ntt.ntt_tables(N, p)
@@ -158,13 +173,42 @@ def _bk_ntt_view(bk_rows: torch.Tensor, params: TfheParams) -> torch.Tensor:
     return bk_rows.unflatten(-1, (params.kpl, params.k + 1)).movedim(-3, -1)
 
 
+def cmux_smem_bytes(N: int, S: int, nbuf: int) -> int:
+    """Shared memory of a block of the form (S, nbuf) at this N: the layout
+    CmuxBlock of csrc/extern_product.cuh in bytes (key buffers with Shoup
+    twins, twiddles of both primes, barriers, constants, accumulators and, a
+    sample, four padded rows and one word)."""
+    row = N + N // 8 + 2
+    words = nbuf * 2 * 8 * N + 8 * N + 4 + 16 + S * 2 * N + S * (4 * row + 1)
+    return 4 * words
+
+
+def cmux_threads(N: int, S: int) -> int:
+    """Threads of a block of S samples: N/2 a sample."""
+    return S * N // 2
+
+
+def blind_rotate_plan(N: int) -> tuple:
+    """(S, nbuf): the form of blind_rotate_kernel and cmux_delta_kernel at
+    this N, the first of CMUX_FORMS that fits a block's shared memory. Block b
+    holds samples b*S .. b*S + S-1; the last block of a batch that S does not
+    divide holds fewer."""
+    for S, nbuf in CMUX_FORMS:
+        if cmux_smem_bytes(N, S, nbuf) <= SMEM_MAX and cmux_threads(N, S) <= 1024:
+            return S, nbuf
+    raise ValueError(f"no form of the blind-rotate kernel fits N = {N}")
+
+
 def _launch_rotate(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
-                   bksh: torch.Tensor, params: TfheParams) -> None:
+                   bksh: torch.Tensor, params: TfheParams, form=None) -> None:
+    """The blind-rotate kernel on a checked, contiguous acc int32[B, k+1, N],
+    in place; `form` (S, nbuf) is blind_rotate_plan's choice unless given."""
     B, n = bara.shape
+    S, nbuf = form or blind_rotate_plan(params.N)
     tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
     check(library().tfhe_blind_rotate(
         acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), bksh.data_ptr(), tab.data_ptr(),
-        B, n, params.N, params.bk_Bgbit, params.decomp_offset, _stream(acc)))
+        B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, _stream(acc)))
 
 
 # ------------------------------------------------------------------ K1
@@ -178,10 +222,10 @@ def cmux_delta_ref(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor
 
 
 def cmux_delta(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
-               params: TfheParams) -> torch.Tensor:
+               params: TfheParams, form=None) -> torch.Tensor:
     """One external product. dec_t: int32[kpl, N, B] signed digits in
     [-Bg/2, Bg/2); bk_j/bksh_j: uint32[P, N, kpl*(k+1)] (one step of bk_rows).
-    Returns delta int32[k+1, N, B]."""
+    Returns delta int32[k+1, N, B]. `form`: as _launch_rotate."""
     if not _on_cuda(dec_t, bk_j, bksh_j):
         return cmux_delta_ref(dec_t, bk_j, bksh_j, params)
     _check_params(params)
@@ -191,9 +235,10 @@ def cmux_delta(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
     dec = dec_t.permute(2, 0, 1).contiguous()
     out = torch.empty((B, params.k + 1, params.N), dtype=torch.int32, device=dec.device)
     tab = _kernel_tables(params.N, params.halfBg, str(dec.device))
+    S, nbuf = form or blind_rotate_plan(params.N)
     check(library().tfhe_cmux_delta(
         dec.data_ptr(), bk_j.data_ptr(), bksh_j.data_ptr(), tab.data_ptr(), out.data_ptr(),
-        B, params.N, params.halfBg, _stream(dec)))
+        B, params.N, S, nbuf, _stream(dec)))
     LAUNCHES["cmux_delta"] += 1
     return out.permute(1, 2, 0)
 
@@ -209,7 +254,7 @@ def blind_rotate_step_ref(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch
 
 
 def blind_rotate_step(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch.Tensor,
-                      bksh_j: torch.Tensor, params: TfheParams) -> torch.Tensor:
+                      bksh_j: torch.Tensor, params: TfheParams, form=None) -> torch.Tensor:
     """One CMux step. acc_t: int32[k+1, N, B]; bara_j: int32[1, B] in [0, 2N);
     bk_j/bksh_j: uint32[P, N, kpl*(k+1)]. Returns the new accumulator. On CUDA
     it is the blind-rotate kernel with n = 1."""
@@ -219,7 +264,7 @@ def blind_rotate_step(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch.Ten
     acc = _acc_rows(acc_t, params)
     _expect(bara_j, torch.int32, (1, acc.shape[0]), "bara_j")
     _check_bk(bk_j, bksh_j, (), params)
-    _launch_rotate(acc, bara_j.T.contiguous(), bk_j, bksh_j, params)
+    _launch_rotate(acc, bara_j.T.contiguous(), bk_j, bksh_j, params, form)
     LAUNCHES["blind_rotate_step"] += 1
     return acc.permute(1, 2, 0)
 
@@ -235,11 +280,12 @@ def blind_rotate_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: tor
 
 
 def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
-                       bksh_rows: torch.Tensor, params: TfheParams) -> torch.Tensor:
+                       bksh_rows: torch.Tensor, params: TfheParams, form=None) -> torch.Tensor:
     """The whole blind rotate (all n CMux steps) in one launch.
 
     acc_t: int32[k+1, N, B]; bara: int32[n, B]; bk_rows/bksh_rows:
-    uint32[n, P, N, kpl*(k+1)]. Returns the accumulator int32[k+1, N, B]."""
+    uint32[n, P, N, kpl*(k+1)]. Returns the accumulator int32[k+1, N, B].
+    `form`: as _launch_rotate."""
     if not _on_cuda(acc_t, bara, bk_rows, bksh_rows):
         return blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)
     _check_params(params)
@@ -247,7 +293,7 @@ def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.T
     n = bara.shape[0]
     _expect(bara, torch.int32, (n, acc.shape[0]), "bara")
     _check_bk(bk_rows, bksh_rows, (n,), params)
-    _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params)
+    _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params, form)
     LAUNCHES["blind_rotate_fused"] += 1
     return acc.permute(1, 2, 0)
 
@@ -350,6 +396,7 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
     C = _check_tks(tks_lane, params)
     bara_b = bara.T.contiguous()
     mma, split = keyswitch_plan(B, params.N, C)
+    S, nbuf = blind_rotate_plan(params.N)
     sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
     r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
     ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
@@ -357,7 +404,7 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
     check(library().tfhe_blind_rotate_ks(
         acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
         tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
-        B, n, params.N, params.bk_Bgbit, params.decomp_offset, C, params.ks_t,
+        B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, C, params.ks_t,
         params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
     LAUNCHES["blind_rotate_ks_fused"] += 1
     LAUNCHES["keyswitch"] += 1

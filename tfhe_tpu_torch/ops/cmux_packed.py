@@ -1,5 +1,5 @@
-"""The small-batch blind rotate (the serial-circuit path, and every flat
-batch up to ``core.bootstrap.SMALL_BATCH_MAX``): wrappers and plain versions.
+"""The small-batch blind rotate (the serial-circuit path, and the flat
+batches ``core.bootstrap.small_batch`` gives it): wrappers and plain versions.
 
 Counterpart of ``tfhe_tpu.ops.cmux_pallas_packed.blind_rotate_fused_packed``
 (K5). The wrappers keep the JAX kernel's interface and its packed layout, and
