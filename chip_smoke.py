@@ -20,7 +20,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               matrix); K1 and K2 also without their wrappers' copies, at batch
               256 and 1 (what a launch and its set-up cost); K3 and K4 again at
               the first batch from which the bootstrap gives them every batch
-              (SMALL_BATCH_MAX + 1),
+              (SMALL_BATCH_MAX + 1) and, on a few hundred rows of each batch
+              (first, last, tile and wave borders, random), at the batches of
+              phases 7 and 8: K4 at 272,000 and 69,632 samples, K3 and the
+              key switch alone at 64,000, every sample a random ciphertext;
               every form of K1-K3 at ragged batches (1, S - 1, S + 1 for S
               samples a block) and K5 at the batch of the gate path (256),
               byte-equal; the key-switch kernel alone at both arms over a
@@ -47,8 +50,33 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               of batch 3 must equal, byte for byte, the plain route (the same
               circuits on CPU tensors, where every wrapper takes its plain
               version);
-  7. profile  one 16-bit add under torch.profiler: device time by kernel and
-              the device's idle share.
+  7. linalg   encrypted vectors and matrices, 16-bit numbers, the same keys:
+              vector_add, vector_mul and vector_sum at length 32, matmul and
+              cannon_matmul at 8x8 (one AND batch of 69,632 samples, then every
+              batch size on the way down) must decrypt to numpy's answer mod
+              2^16, and the two matmuls alike; per op the wall time after a
+              warm-up at 2x2, the launches and bootstrapped samples by kernel,
+              samples/s beside the chained AND's, and the peak device memory;
+  8. linreg   both linear regressions of 200 rows x 10 attributes as one
+              batched fit each (the numerical one opens with AND batches of
+              272,000 samples, the binary one with a MUX of 2 x 32,000): every
+              (b1, b0) must equal a plaintext twin of the fixed-width circuit;
+  9. apps     alice -> cloud -> verify over secret.key / cloud.key /
+              cloud.data / answer.data in a temporary directory for add, mul
+              and div at 16 bits; the reference's keys written by the port
+              hash to tests/fixtures/SHA256SUMS; tests/fixtures/cloud.data
+              imports, decrypts to (2017, 42) and its sum through the cloud
+              app to 2059; the experiment suite (apps.cli) returns 0; then
+              matmul, cannon_matmul and a 4-row regression at PARAMS_SMALL
+              must equal the plain route byte for byte, and the 4-bit
+              matmul / cannon_matmul / vector_sum must match the golden
+              SHA-256 tfhe_tpu computed on the CPU;
+ 10. profile  one 16-bit add and one 8x8 matmul under torch.profiler: device
+              time by kernel and the device's idle share.
+
+No phase catches a failure and goes on, and no app or wrapper moves to the
+CPU or to a plain version on its own: the plain route runs only where a phase
+asks for it, on CPU copies, to be compared with.
 
 The line before the last is a JSON object with the path's kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script exits
@@ -60,8 +88,10 @@ import functools
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +100,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_and_golden.json")
 GOLDEN_ADD16 = os.path.join(ROOT, "tests", "fixtures", "torch_port_add16_golden.json")
+GOLDEN_LINALG = os.path.join(ROOT, "tests", "fixtures", "torch_port_linalg_golden.json")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+NBITS = 16             # the width of the linalg, linreg and apps phases
+VECTOR = 32            # vector_add, vector_mul, vector_sum
+MATRIX = 8             # matmul, cannon_matmul
+LINREG_ROWS, LINREG_ATTRS = 200, 10
 BATCH = 256
 CHAIN = 5
 SOURCE = "tfhe_tpu_torch/csrc/cmux.cu"
@@ -79,6 +115,7 @@ SOURCE_SMALL = "tfhe_tpu_torch/csrc/blind_rotate_small.cu"
 SWEEP = (1, 2, 8, 30, 31, 64, 132, 133, 192, 264, 265, 396, 528, 660, 792, 1056, 1188, 1320,
          2048, 4096)
 LARGE_BATCH = 2049     # K3 and K4 against plain at a batch of several waves
+WIDE_RANDOM = 160      # random rows held against plain at the linalg and linreg batches
 ROUTE_SLACK = 1.08     # the kernel small_batch() picks may be this much slower than the other
 KS_CHECK = (1, 2, 3, 33, 64, 256)           # key switch against keyswitch_ref, both arms
 KS_SWEEP = (1, 2, 8, 16, 24, 32, 64, 128, 256)   # key switch beside torch._int_mm
@@ -487,6 +524,7 @@ def phase_kernels(sk, x, smi: str) -> dict:
     out["keyswitch"] = {**ks_rows[BATCH], "shape": f"PARAMS_110 B={BATCH}",
                         "by_batch": {str(b): r for b, r in ks_rows.items()}}
     check_large_batch(sk, x)
+    check_wide_batch(sk)
     check_ragged(sk, x)
     out["blind_rotate_fused_packed"] = phase_k5(sk, x, smi)
     out["blind_rotate"]["by_batch"] = {
@@ -527,6 +565,92 @@ def check_large_batch(sk, x) -> None:
     torch.cuda.synchronize()
     log(f"[kernels] blind_rotate and blind_rotate_ks PARAMS_110 B={batches} (SMALL_BATCH_MAX = "
         f"{bs.SMALL_BATCH_MAX}: every batch above it is theirs): byte-equal to plain "
+        f"(max |err| {err}; {time.time() - t0:.1f} s)")
+
+
+def wide_rows(B: int, N: int, rng: np.random.RandomState) -> np.ndarray:
+    """Rows of a batch of B that the plain version is run on: the first and the
+    last, the rows either side of each of the first borders of a key-switch
+    tile (KS_MMA_ROWS samples), of a wave of blind-rotate blocks (S samples a
+    block, one block a multiprocessor) and of the last such tile and wave, and
+    WIDE_RANDOM rows drawn from the whole batch."""
+    from tfhe_tpu_torch.ops import cmux
+    S, _ = cmux.blind_rotate_plan(N)
+    wave = S * torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {0, 1, B - 2, B - 1}
+    for unit in (cmux.KS_MMA_ROWS, wave):
+        for border in (unit, 2 * unit, B // unit * unit, (B - 1) // unit * unit):
+            rows.update((border - 1, border, border + 1))
+    rows.update(rng.randint(0, B, WIDE_RANDOM).tolist())
+    return np.array(sorted(r for r in rows if 0 <= r < B), np.int64)
+
+
+def check_wide_batch(sk) -> None:
+    """The kernels at the batches the linalg and linreg phases give them,
+    byte-equal to their plain versions on the rows of wide_rows() (the samples
+    are independent: the plain version of a row needs that row alone): K4 at
+    the opening AND batch of the numerical regression and of the 8x8 matmul,
+    K3 and then the key-switch kernel alone at the binary regression's MUX.
+    Every sample is its own random LWE ciphertext, so a row that came from
+    another row's data cannot pass."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
+    bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
+    products = NBITS * (NBITS + 1) // 2                 # ANDs of one 16-bit product
+    fit = LINREG_ROWS * LINREG_ATTRS
+    k4_batches = (fit * products, MATRIX ** 3 * products)
+    mux = 2 * fit * NBITS
+    t0 = time.time()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(69632)
+    rng = np.random.RandomState(69632)
+    top = max(k4_batches + (mux,))
+    lo, hi = -(1 << 31), 1 << 31
+    xs = LweCiphertext(
+        torch.randint(lo, hi, (top, params.n), generator=gen, device="cuda").to(torch.int32),
+        torch.randint(lo, hi, (top,), generator=gen, device="cuda").to(torch.int32),
+        torch.zeros(top, dtype=torch.float32, device="cuda"))
+    acc, bara = bs._prepare_acc(xs, gates.MU, cloud)
+    acc_all, bara_all = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
+    del acc, bara, xs
+    err, held = 0, []
+
+    def inputs(B):
+        # the last B samples: the batches below the largest do not share its rows
+        return acc_all[:, :, top - B:].contiguous(), bara_all[:, top - B:].contiguous()
+
+    def plain(acc_t, bara_t, rows):
+        pick = torch.from_numpy(rows).cuda()
+        rot = cmux.blind_rotate_fused_ref(acc_t[:, :, pick].contiguous(),
+                                          bara_t[:, pick].contiguous(), bk, sh, params)
+        return pick, rot, cmux.keyswitch_ref(rot, tks, params)
+
+    for B in k4_batches:
+        acc_t, bara_t = inputs(B)
+        if cmux.keyswitch_plan(B, params.N, tks.shape[2] // 4) != (1, 1):
+            raise AssertionError(f"key-switch plan at B={B}: "
+                                 f"{cmux.keyswitch_plan(B, params.N, tks.shape[2] // 4)}")
+        r, ext = cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params)
+        pick, _, (want_r, want_ext) = plain(acc_t, bara_t, wide_rows(B, params.N, rng))
+        err = max(err, expect_equal(f"blind_rotate_ks 110 B={B} r", r[pick], want_r),
+                  expect_equal(f"blind_rotate_ks 110 B={B} ext", ext[:, pick], want_ext))
+        held.append(f"blind_rotate_ks B={B} on {len(pick)} rows")
+        del acc_t, bara_t, r, ext
+    acc_t, bara_t = inputs(mux)
+    rot = cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params)
+    r, ext = cmux.keyswitch(rot, tks, params)
+    pick, want_rot, (want_r, want_ext) = plain(acc_t, bara_t, wide_rows(mux, params.N, rng))
+    err = max(err, expect_equal(f"blind_rotate 110 B={mux}", rot[:, :, pick], want_rot),
+              expect_equal(f"keyswitch 110 B={mux} r", r[pick], want_r),
+              expect_equal(f"keyswitch 110 B={mux} ext", ext[:, pick], want_ext))
+    held.append(f"blind_rotate and keyswitch B={mux} on {len(pick)} rows")
+    torch.cuda.synchronize()
+    log(f"[kernels] the batches of the linalg and linreg phases, PARAMS_110, every sample a random "
+        f"ciphertext of its own: {'; '.join(held)} (first, last, either side of the key-switch "
+        f"tiles' and the waves' borders, {WIDE_RANDOM} random): byte-equal to plain "
         f"(max |err| {err}; {time.time() - t0:.1f} s)")
 
 
@@ -691,7 +815,8 @@ def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     gx, gy = golden_in
     g_out = gates.AND(gx, gy, cloud)
     torch.cuda.synchronize()
-    launches = dict(cmux.LAUNCHES)
+    counts = read_counts()
+    launches = counts["launches"]
     log(f"[main] launch counts, AND B={BATCH} and the golden AND: {launches}")
     with open(GOLDEN) as f:
         golden = json.load(f)
@@ -715,12 +840,11 @@ def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     cmux.reset_launches()
     check_and(sk, f"batch {big}", xb, yb, np.tile(bits_x & bits_y, reps)[:big])
     torch.cuda.synchronize()
-    launches_big = dict(cmux.LAUNCHES)
-    log(f"[main] launch counts, AND B={big} (one above SMALL_BATCH_MAX): {launches_big}")
-    for name in large:
-        if launches_big[name] < 1:
-            raise AssertionError(f"the batch-{big} AND did not launch {name}")
-    return {"and": launches, "large_batch": launches_big}
+    counts_big = read_counts()
+    log(f"[main] launch counts, AND B={big} (one above SMALL_BATCH_MAX): "
+        f"{counts_big['launches']}")
+    expect_routes(f"the batch-{big} AND", counts_big, large)
+    return {"and": counts, "large_batch": counts_big}
 
 
 def plain_and(x, y, cloud):
@@ -782,8 +906,7 @@ def expect_plaintext(sk, label: str, out, truth, a, b, nbits: int) -> np.ndarray
     from tfhe_tpu_torch import arith
     if hasattr(out, "ct"):
         got = arith.decrypt_int(sk, out.ct)
-        want = np.asarray(truth(a, b), np.int64) & ((1 << nbits) - 1)
-        want = np.where(want >> (nbits - 1), want - (1 << nbits), want)
+        want = signed(truth(a, b), nbits)
     else:
         got, want = tt.decrypt_bits(sk, out).astype(np.int64), truth(a, b)
     if not np.array_equal(got, want):
@@ -795,7 +918,7 @@ def phase_circuits(sk, smi: str) -> tuple:
     """The serial-circuit path: 16-bit CipherInt ops at one number per batch,
     PARAMS_110, the reference's keys on the card. Each op runs twice (the
     first run puts its index plans on the card) and the second is timed.
-    Returns the launch counts of this phase and the two operands."""
+    Returns the launch and sample counts of this phase and the two operands."""
     from tfhe_tpu_torch import ref_keygen
     from tfhe_tpu_torch.cipher import CipherInt
     from tfhe_tpu_torch.core.lwe import LweCiphertext
@@ -839,11 +962,10 @@ def phase_circuits(sk, smi: str) -> tuple:
                 raise AssertionError(f"add16 SHA-256 {digest} != {g['sha256']}")
             log(f"[circuits] add16 matches tfhe_tpu's SHA-256 {digest}")
     torch.cuda.synchronize()
-    launches = dict(cmux.LAUNCHES)
-    log(f"[circuits] launch counts: {launches}")
-    if launches["keyswitch"] < 1:
-        raise AssertionError("no stage of the circuits went through the key-switch kernel")
-    return launches, x, y
+    counts = read_counts()
+    log(f"[circuits] launch counts: {counts['launches']}")
+    expect_routes("the circuits", counts, ("keyswitch",))
+    return counts, x, y
 
 
 def phase_arms(x, y, smi: str) -> None:
@@ -900,25 +1022,372 @@ def phase_circuits_plain() -> None:
         f"the card equals the plain route byte for byte ({time.time() - t0:.1f} s)")
 
 
-def phase_profile(x, y, smi: str) -> None:
-    """One 16-bit add under torch.profiler: device time by kernel, and the
-    share of the device's span (first kernel start to last kernel end) in
-    which no kernel ran."""
-    from torch.profiler import ProfilerActivity, profile
-    _ = x + y                                   # warm
+def signed(v, nbits: int) -> np.ndarray:
+    """Integers taken mod 2^nbits as signed nbits-bit numbers."""
+    v = np.asarray(v, np.int64) & ((1 << nbits) - 1)
+    return np.where(v >> (nbits - 1), v - (1 << nbits), v)
+
+
+BLIND_ROTATES = ("blind_rotate_fused", "blind_rotate_ks_fused", "blind_rotate_fused_packed")
+
+
+def read_counts() -> dict:
+    """The launches and the samples they held since the last reset, by kernel."""
+    from tfhe_tpu_torch.ops import cmux
+    return {"launches": dict(cmux.LAUNCHES), "samples": dict(cmux.SAMPLES)}
+
+
+def add_counts(total: dict, part: dict) -> None:
+    for kind in ("launches", "samples"):
+        for name, v in part[kind].items():
+            total[kind][name] = total[kind].get(name, 0) + v
+
+
+def on_card(fn) -> dict:
+    """fn() on the card between synchronises, with the counts set to 0 just
+    before and read just after: its result, wall ms, counts, and the peak of
+    the device memory allocated during the call beside what was held before."""
+    from tfhe_tpu_torch.ops import cmux
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    held = torch.cuda.memory_allocated()
+    PHASE_PEAK[0] = max(PHASE_PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    cmux.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"out": out, "ms": ms, **read_counts(), "held_bytes": held,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def describe(run: dict, and_rate: float, smi: str) -> str:
+    """One run of on_card() in words: time, samples by kernel, rate, memory."""
+    samples = {k: v for k, v in run["samples"].items() if v}
+    launches = {k: v for k, v in run["launches"].items() if v}
+    boots = sum(run["samples"][k] for k in BLIND_ROTATES)
+    return (f"{run['ms']:.3f} ms; {boots} bootstrapped samples, by kernel {samples} in launches "
+            f"{launches}; {boots / run['ms'] * 1e3:.1f} samples/s (the chained AND at B={BATCH}: "
+            f"{and_rate:.1f}/s); peak device memory {run['peak_bytes'] / 2 ** 20:.1f} MiB "
+            f"({run['held_bytes'] / 2 ** 20:.1f} MiB held before the call) ({smi})")
+
+
+# the largest peak on_card() read before its resets since the last log_peak()
+PHASE_PEAK = [0]
+
+
+def log_peak(phase: str, smi: str) -> None:
+    """Prints the peak of the device memory allocated since the last such
+    line, and starts the next interval."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = max(PHASE_PEAK[0], torch.cuda.max_memory_allocated())
+    log(f"[{phase}] peak device memory allocated in this phase {peak / 2 ** 20:.1f} MiB of "
+        f"{total / 2 ** 20:.1f} MiB ({smi})")
+    PHASE_PEAK[0] = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def expect_routes(label: str, counts: dict, names) -> None:
+    for name in names:
+        if counts["launches"][name] < 1:
+            raise AssertionError(f"{label}: no stage went through {name}")
+
+
+def phase_linalg(sk, and_rate: float, smi: str) -> tuple:
+    """Encrypted vectors and matrices of 16-bit numbers at PARAMS_110 on the
+    card, each op after a warm-up at 2x2, decrypted and held against numpy mod
+    2^16. Returns the phase's counts and the two encrypted matrices."""
+    from tfhe_tpu_torch import arith, linalg
+    cloud = sk.cloud
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    rng = np.random.RandomState(32)
+
+    def draw(*shape):
+        return rng.randint(0, 1 << NBITS, size=shape).astype(np.int64)
+
+    def enc(v):
+        return arith.encrypt_int(sk, v, NBITS, gen, "cuda")
+
+    small = enc(draw(2, 2))
+    for fn in (linalg.vector_add, linalg.vector_mul, linalg.matmul, linalg.cannon_matmul):
+        fn(small, small, cloud)
+    linalg.vector_sum(small, cloud)
+    va, vb, ma, mb = draw(VECTOR), draw(VECTOR), draw(MATRIX, MATRIX), draw(MATRIX, MATRIX)
+    cva, cvb, cma, cmb = enc(va), enc(vb), enc(ma), enc(mb)
+    ops = [
+        ("vector_add", f"length {VECTOR}", lambda: linalg.vector_add(cva, cvb, cloud), va + vb),
+        ("vector_mul", f"length {VECTOR}", lambda: linalg.vector_mul(cva, cvb, cloud), va * vb),
+        ("vector_sum", f"length {VECTOR}", lambda: linalg.vector_sum(cva, cloud), va.sum()),
+        ("matmul", f"{MATRIX}x{MATRIX}", lambda: linalg.matmul(cma, cmb, cloud), ma @ mb),
+        ("cannon_matmul", f"{MATRIX}x{MATRIX}", lambda: linalg.cannon_matmul(cma, cmb, cloud),
+         ma @ mb),
+    ]
+    total = {"launches": {}, "samples": {}}
+    got = {}
+    for name, size, call, truth in ops:
+        run = on_card(call)
+        got[name] = arith.decrypt_int(sk, run["out"])
+        if not np.array_equal(got[name], signed(truth, NBITS)):
+            raise AssertionError(f"{name} {size} decrypts to {got[name]}, want "
+                                 f"{signed(truth, NBITS)}")
+        add_counts(total, run)
+        log(f"[linalg] {name} {size}, {NBITS}-bit, PARAMS_110: decrypts to numpy's answer mod "
+            f"2^{NBITS}; {describe(run, and_rate, smi)}")
+        if name.endswith("matmul"):
+            if run["samples"]["blind_rotate_ks_fused"] < MATRIX ** 3 * (NBITS * (NBITS + 1) // 2):
+                raise AssertionError(f"{name}: the partial products did not go through "
+                                     f"blind_rotate_ks_fused")
+            expect_routes(name, run, ("blind_rotate_ks_fused", "blind_rotate_fused_packed",
+                                      "keyswitch"))
+    if not np.array_equal(got["matmul"], got["cannon_matmul"]):
+        raise AssertionError("matmul and cannon_matmul decrypt differently")
+    log(f"[linalg] matmul and cannon_matmul {MATRIX}x{MATRIX} decrypt alike; counts of the "
+        f"phase: {total}")
+    return total, (cma, cmb)
+
+
+def twin_div(num: int, den: int, nb: int) -> int:
+    """Plaintext twin of arith.div: the width-limited restoring loop
+    (Cipher.cpp:508-577), with its output for a zero divisor (the restore
+    never fires: all quotient bits come out ones) and the sign-bit compare mod
+    2^nb, then the conditional negate by the XOR of the signs."""
+    m = (1 << nb) - 1
+    num, den = int(signed(num, nb)), int(signed(den, nb))
+    an, ad = abs(num) & m, abs(den) & m
+    neg_b = (-ad) & m
+    P, A = 0, an
+    for _ in range(nb):
+        P = ((P << 1) | (A >> (nb - 1))) & m
+        A = (A << 1) & m
+        temp = (P + neg_b) & m
+        neg = (temp >> (nb - 1)) & 1
+        A |= 1 - neg
+        if not neg:
+            P = temp
+    q = (-A) & m if (num < 0) != (den < 0) else A
+    return int(signed(q, nb))
+
+
+def twin_linreg(xs: np.ndarray, ys: np.ndarray, nb: int, binary: bool) -> list:
+    """Plaintext twin of apps.linreg on xs [attrs, rows] and ys [attrs, rows]:
+    the same widths and truncation at every step; (b1, b0) per attribute."""
+    n_rows = xs.shape[1]
+    m = (1 << nb) - 1
+    out = []
+    for x, y in zip(xs.astype(np.int64), ys.astype(np.int64)):
+        sx, sy = int(x.sum()) & m, int(y.sum()) & m
+        sxy = int(np.where(x != 0, y, 0).sum()) & m if binary else int(((x * y) & m).sum()) & m
+        sxx = sx if binary else int(((x * x) & m).sum()) & m
+        num = (n_rows * sxy - sx * sy) & m
+        den = (n_rows * sxx - sx * sx) & m
+        b1 = twin_div(num, den, nb)
+        b0 = twin_div((sy - b1 * sx) & m, n_rows & m, nb)
+        out.append((b1, b0))
+    return out
+
+
+def phase_linreg(sk, and_rate: float, smi: str) -> dict:
+    """Both regressions of LINREG_ROWS rows x LINREG_ATTRS attributes at 16
+    bits and PARAMS_110 as one batched fit each, on 6-bit data drawn from
+    np.random.RandomState(7) (the targets, the binary attributes, then the
+    numerical ones); every (b1, b0) must equal the plaintext twin."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith
+    from tfhe_tpu_torch.apps import linreg
+    R, A, cloud = LINREG_ROWS, LINREG_ATTRS, sk.cloud
+    rng = np.random.RandomState(7)
+    ys = np.broadcast_to(rng.randint(0, 1 << 6, size=R), (A, R))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(92)
+    total = {"launches": {}, "samples": {}}
+    for variant in ("binary", "numerical"):
+        binary = variant == "binary"
+        xs = rng.randint(0, 2 if binary else 1 << 6, size=(A, R))
+        cx = (tt.encrypt_bits(sk, xs.astype(np.int32), gen, "cuda") if binary
+              else arith.encrypt_int(sk, xs, NBITS, gen, "cuda"))
+        cy = arith.encrypt_int(sk, ys, NBITS, gen, "cuda")
+        fit = linreg.linear_regression_binary if binary else linreg.linear_regression
+        run = on_card(lambda: fit(cx, cy, cloud))
+        b1, b0 = (arith.decrypt_int(sk, v) for v in run["out"])
+        got = [(int(p), int(q)) for p, q in zip(b1, b0)]
+        want = twin_linreg(xs, ys, NBITS, binary)
+        if got != want:
+            raise AssertionError(f"linreg {variant} {R}x{A}: decrypts to {got}, the plaintext "
+                                 f"twin gives {want}")
+        # the binary fit's MUX of 2 x 32,000 is the large bootstrap without key
+        # switch; the numerical fit's MUXes (the divisions') are small
+        expect_routes(f"linreg {variant}", run,
+                      ("blind_rotate_ks_fused", "blind_rotate_fused_packed", "keyswitch")
+                      + (("blind_rotate_fused",) if binary else ()))
+        add_counts(total, run)
+        log(f"[linreg] {variant} fit, {R} rows x {A} attributes, {NBITS}-bit, PARAMS_110: all "
+            f"{A} (b1, b0) equal the plaintext twin {want[:3]}...; {describe(run, and_rate, smi)}")
+    return total
+
+
+def _sha256_sums() -> dict:
+    with open(os.path.join(FIXTURES, "SHA256SUMS")) as f:
+        return {name: digest for digest, name in (line.split() for line in f)}
+
+
+def phase_apps(sk, smi: str) -> dict:
+    """The apps over the reference wire format, on the card by default (no
+    --device): alice -> cloud -> verify for add, mul and div at 16 bits; the
+    reference's keys as the port writes them against the committed hashes;
+    the committed cloud.data through the cloud app; the experiment suite (apps.cli)."""
+    from tfhe_tpu_torch import io as tio
+    from tfhe_tpu_torch.apps import alice, cli, cloud, verify
+    from tfhe_tpu_torch.core.crypt import decrypt_bits
+    from tfhe_tpu_torch.ops import cmux
+    a, b = 1234, -567
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cmux.reset_launches()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         t0 = time.perf_counter()
-        _ = x + y
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        alice.main([str(a), str(b), "--dir", d])
+        log(f"[apps] alice: keys and {NBITS}-bit a={a}, b={b} written in "
+            f"{time.perf_counter() - t0:.3f} s ({smi})")
+        for op, want in (("add", a + b), ("mul", a * b), ("div", int(a / b))):
+            t0 = time.perf_counter()
+            cloud.main(["--op", op, "--dir", d])
+            got = verify.main(["--dir", d])
+            if got != int(signed(want, NBITS)):
+                raise AssertionError(f"apps {op}: verify prints {got}, want {signed(want, NBITS)}")
+            log(f"[apps] alice -> cloud --op {op} -> verify: {got}, the plaintext result; cloud "
+                f"and verify with their key imports {time.perf_counter() - t0:.3f} s ({smi})")
+
+        sums = _sha256_sums()
+        for name, export in (("secret.key", tio.export_secret_keyset),
+                             ("cloud.key", tio.export_cloud_keyset)):
+            with open(os.path.join(d, name), "wb") as f:
+                export(f, sk)
+            with open(os.path.join(d, name), "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            if digest != sums[name]:
+                raise AssertionError(f"{name} of the reference's keys hashes to {digest}, "
+                                     f"tests/fixtures/SHA256SUMS has {sums[name]}")
+        log("[apps] export_secret_keyset / export_cloud_keyset of keygen_reference(PARAMS_110) "
+            "hash to the secret.key and cloud.key lines of tests/fixtures/SHA256SUMS")
+        shutil.copy(os.path.join(FIXTURES, "cloud.data"), os.path.join(d, "cloud.data"))
+        with open(os.path.join(d, "cloud.data"), "rb") as f:
+            ct = tio.import_ciphertexts(f, 2 * NBITS, sk.params.n)
+        if ct.a.device.type != "cuda":
+            raise AssertionError("import_ciphertexts did not put the samples on the card")
+        bits = decrypt_bits(sk, ct).astype(np.int64).reshape(2, NBITS)
+        pair = [int(v) for v in (bits << np.arange(NBITS)).sum(-1)]
+        if pair != [2017, 42]:
+            raise AssertionError(f"tests/fixtures/cloud.data decrypts to {pair}, want [2017, 42]")
+        cloud.main(["--op", "add", "--dir", d])
+        got = verify.main(["--dir", d])
+        if got != 2017 + 42:
+            raise AssertionError(f"the fixture's sum through the cloud app decrypts to {got}")
+        log(f"[apps] tests/fixtures/cloud.data imports on the card, decrypts to {pair}, and its "
+            f"{NBITS}-bit sum through the cloud app to {got}")
+    t0 = time.perf_counter()
+    if cli.main([str(NBITS), "1234", "567", "4"]) != 0:
+        raise AssertionError("apps.cli reports a wrong result")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[apps] cli 16 1234 567 4 returns 0 in {time.perf_counter() - t0:.3f} s; counts of the "
+        f"phase: {counts} ({smi})")
+    expect_routes("apps", counts, ("blind_rotate_fused_packed", "keyswitch"))
+    return counts
+
+
+def phase_linalg_plain() -> None:
+    """matmul and cannon_matmul 2x2 at 8 bits and a 4-row regression at 6 bits,
+    PARAMS_SMALL: on the card (kernels) and on CPU copies of the keys and
+    inputs (the plain route), byte for byte, and decrypting right."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith, linalg
+    from tfhe_tpu_torch.apps import linreg
+    sk = tt.keygen(tt.PARAMS_SMALL, seed=9, device="cuda")
+    cpu_cloud = sk.cloud.to("cpu")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    a, b = np.array([[1, -2], [0, 3]]), np.array([[2, 1], [-1, 1]])
+    x, y = np.array([[1, 2, 3, 0]]), np.array([[3, 5, 7, 1]])
+    ca, cb = (arith.encrypt_int(sk, v, 8, gen, "cuda") for v in (a, b))
+    cx, cy = (arith.encrypt_int(sk, v, 6, gen, "cuda") for v in (x, y))
+    t0 = time.time()
+    cases = [("matmul", linalg.matmul, (ca, cb), [signed(a @ b, 8)]),
+             ("cannon_matmul", linalg.cannon_matmul, (ca, cb), [signed(a @ b, 8)]),
+             ("linear_regression", linreg.linear_regression, (cx, cy),
+              [[v] for v in twin_linreg(x, y, 6, False)[0]])]
+    for name, fn, args, want in cases:
+        out = fn(*args, sk.cloud)
+        plain = fn(*(c.to("cpu") for c in args), cpu_cloud)
+        outs, plains = (out, plain) if isinstance(out, tuple) else ((out,), (plain,))
+        for got, ref, truth in zip(outs, plains, want, strict=True):
+            if not (torch.equal(got.a.cpu(), ref.a) and torch.equal(got.b.cpu(), ref.b)):
+                raise AssertionError(f"{name} PARAMS_SMALL: the card differs from the plain route")
+            if not np.array_equal(arith.decrypt_int(sk, got), truth):
+                raise AssertionError(f"{name} PARAMS_SMALL decrypts to "
+                                     f"{arith.decrypt_int(sk, got)}, want {truth}")
+    log(f"[apps] matmul and cannon_matmul 2x2 (8-bit) and a 4-row linear_regression (6-bit) at "
+        f"PARAMS_SMALL: the card equals the plain route byte for byte ({time.time() - t0:.1f} s)")
+
+
+def phase_linalg_golden(sk) -> None:
+    """The 4-bit 2x2 matmul and cannon_matmul and the vector_sum of 4 on the
+    golden's reference-encrypted operands must match the SHA-256 tfhe_tpu
+    computed on the CPU."""
+    from tfhe_tpu_torch import arith, linalg, ref_keygen
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    with open(GOLDEN_LINALG) as f:
+        g = json.load(f)
+    nb = g["nbits"]
+    values = [np.asarray(g[k], np.int64) for k in ("matrix_a", "matrix_b", "vector")]
+    bits = np.concatenate([((v[..., None] >> np.arange(nb)) & 1).reshape(-1) for v in values])
+    ref_keygen.keygen_raw(tuple(g["seed"]))      # restarts the reference's stream
+    a, b = ref_keygen.encrypt_bits(sk.lwe_key, bits.astype(np.int32))
+    cts, at = [], 0
+    for v in values:
+        m, shape = v.size * nb, v.shape + (nb,)
+        cts.append(LweCiphertext(
+            torch.from_numpy(a[at:at + m].reshape(shape + (a.shape[-1],))).cuda(),
+            torch.from_numpy(b[at:at + m].reshape(shape)).cuda(),
+            torch.zeros(shape, dtype=torch.float32, device="cuda")))
+        at += m
+    ma, mb, vec = cts
+    outs = (linalg.matmul(ma, mb, sk.cloud), linalg.cannon_matmul(ma, mb, sk.cloud),
+            linalg.vector_sum(vec, sk.cloud))
+    h = hashlib.sha256()
+    for ct in outs:
+        h.update(ct.a.cpu().numpy().astype("<i4").tobytes())
+        h.update(ct.b.cpu().numpy().astype("<i4").tobytes())
+    if h.hexdigest() != g["sha256"]:
+        raise AssertionError(f"linalg golden SHA-256 {h.hexdigest()} != {g['sha256']}")
+    for out, want in zip(outs, (g["product"], g["product"], g["sum"])):
+        if not np.array_equal(arith.decrypt_int(sk, out), want):
+            raise AssertionError(f"linalg golden decrypts to {arith.decrypt_int(sk, out)}")
+    log(f"[apps] 4-bit 2x2 matmul, cannon_matmul and vector_sum of 4 match tfhe_tpu's SHA-256 "
+        f"{h.hexdigest()}")
+
+
+def phase_profile(label: str, fn, smi: str) -> None:
+    """One fn() under torch.profiler: device time by kernel, and the share of
+    the device's span (first kernel start to last kernel end) in which no
+    kernel ran."""
+    from tfhe_tpu_torch.utils.profiling import device_trace
+    fn()                                        # warm
+    torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        with device_trace(d) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        trace_bytes = os.path.getsize(os.path.join(d, "trace.json"))
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((ev.time_range.start, ev.time_range.end))
             by_name[ev.name] = by_name.get(ev.name, 0.0) + (ev.time_range.end - ev.time_range.start)
     if not spans:
-        log("[profile] torch.profiler recorded no device event: idle share not measured")
+        log(f"[profile] {label}: torch.profiler recorded no device event: idle share not measured")
         return
     spans.sort()
     busy, edge = 0.0, spans[0][0]
@@ -927,9 +1396,9 @@ def phase_profile(x, y, smi: str) -> None:
             busy += end - max(start, edge)
             edge = end
     span = spans[-1][1] - spans[0][0]
-    log(f"[profile] add16 PARAMS_110, one number: wall {wall_ms:.3f} ms under the profiler, device "
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, device "
         f"span {span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f} % "
-        f"({len(spans)} device events; {smi})")
+        f"({len(spans)} device events, a trace of {trace_bytes} bytes; {smi})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, us in top[:6]:
         log(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
@@ -975,17 +1444,37 @@ def main() -> int:
     y = tt.encrypt_bits(sk, bits_y, gen, "cuda")
 
     timed = phase_kernels(sk, x, dev["smi"])
+    log_peak("kernels", dev["smi"])
     launches = phase_main(sk, golden_in, x, y, bits_x, bits_y)
-    phase_timing(sk, x, y, bits_x & bits_y, dev["smi"])
-    circuit_launches, cx, cy = phase_circuits(sk, dev["smi"])
+    log_peak("main", dev["smi"])
+    and_rate = phase_timing(sk, x, y, bits_x & bits_y, dev["smi"])["kernel"]["bootstraps_per_s"]
+    circuit_counts, cx, cy = phase_circuits(sk, dev["smi"])
     phase_arms(cx, cy, dev["smi"])
     phase_circuits_plain()
-    phase_profile(cx, cy, dev["smi"])
+    log_peak("circuits", dev["smi"])
+    from tfhe_tpu_torch import linalg
+    linalg_counts, (cma, cmb) = phase_linalg(sk, and_rate, dev["smi"])
+    log_peak("linalg", dev["smi"])
+    linreg_counts = phase_linreg(sk, and_rate, dev["smi"])
+    log_peak("linreg", dev["smi"])
+    apps_counts = phase_apps(sk, dev["smi"])
+    phase_linalg_plain()
+    phase_linalg_golden(sk)
+    log_peak("apps", dev["smi"])
+    phase_profile("add16 PARAMS_110, one number", lambda: cx + cy, dev["smi"])
+    phase_profile(f"matmul {MATRIX}x{MATRIX} {NBITS}-bit PARAMS_110",
+                  lambda: linalg.matmul(cma, cmb, sk.cloud), dev["smi"])
+    log_peak("profile", dev["smi"])
+
+    paths = {"and": launches["and"], "large_batch": launches["large_batch"],
+             "circuits": circuit_counts, "linalg": linalg_counts, "linreg": linreg_counts,
+             "apps": apps_counts}
 
     def counted(counter: str) -> dict:
-        by_path = {"and": launches["and"][counter], "large_batch": launches["large_batch"][counter],
-                   "circuits": circuit_launches[counter]}
-        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+        by_path = {path: c["launches"].get(counter, 0) for path, c in paths.items()}
+        samples = {path: c["samples"].get(counter, 0) for path, c in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path,
+                "samples": sum(samples.values()), "samples_by_path": samples}
 
     def on_paths(counter: str) -> dict:
         out = counted(counter)

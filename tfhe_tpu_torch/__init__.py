@@ -1,9 +1,11 @@
 """tfhe_tpu_torch: the PyTorch/CUDA port of ``tfhe_tpu``.
 
-Keys, encryption, the batched gate bootstrap, the integer circuits and
-``CipherInt`` on torch tensors. On CUDA tensors the blind rotate and the
-fused key switch run in CUDA kernels written by hand for Hopper (``csrc/``);
-on CPU tensors every kernel takes its plain-torch version. The package never
+Keys, encryption, the batched gate bootstrap, the integer circuits,
+``CipherInt``, encrypted vectors and matrices, the reference wire format and
+the alice/cloud/verify/cli apps with linear regression, on torch tensors.
+On CUDA tensors the blind rotate and the fused key switch run in CUDA kernels
+written by hand for Hopper (``csrc/``); on CPU tensors every kernel takes its
+plain-torch version. The package never
 imports jax; ``tfhe_tpu`` is the reference it is tested against, byte for
 byte.
 
@@ -14,7 +16,13 @@ Layer map (the module names follow ``tfhe_tpu``):
   core            -> tfhe_tpu_torch.core (lwe, keys, crypt, bootstrap)
   gates           -> tfhe_tpu_torch.gates
   arithmetic      -> tfhe_tpu_torch.arith, tfhe_tpu_torch.cipher
+  vectors/matrices -> tfhe_tpu_torch.linalg (matmul, Cannon on one device)
+  wire format     -> tfhe_tpu_torch.io (the reference's secret.key / cloud.key /
+                     cloud.data files, byte for byte)
+  apps            -> tfhe_tpu_torch.apps (alice, cloud, verify, cli, linreg; on
+                     the card unless given --device cpu)
   noise model     -> tfhe_tpu_torch.utils.phasesim
+  timing          -> tfhe_tpu_torch.utils.profiling (CUDA events, torch.profiler)
 """
 
 from .params import TfheParams, PARAMS_110, PARAMS_TOY, PARAMS_SMALL, PARAMS_SMALL_NOISY
@@ -25,6 +33,7 @@ from . import gates
 from . import ntt
 from . import numeric
 from . import arith
+from . import linalg
 from .cipher import CipherInt
 
 __version__ = "0.1.0"

@@ -4,7 +4,8 @@ Counterpart of ``tfhe_tpu.ops.cmux_pallas``. Each wrapper keeps the JAX
 kernel's array layouts at its interface, and dispatches on the device of its
 tensors: a CPU tensor takes the plain-torch version (``*_ref``, built from
 ``core.bootstrap``'s pieces); a CUDA tensor launches the hand-written kernel
-of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]``.
+of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]`` and
+its batch to ``SAMPLES[name]``; a batch beyond ``max_batch`` is refused.
 
 | wrapper                | TPU kernel it replaces                          |
 |------------------------|-------------------------------------------------|
@@ -40,6 +41,9 @@ from ._build import check, library
 # launched by the wrappers of ops/cmux_packed.py
 LAUNCHES = {"cmux_delta": 0, "blind_rotate_step": 0, "blind_rotate_fused": 0,
             "blind_rotate_ks_fused": 0, "blind_rotate_fused_packed": 0, "keyswitch": 0}
+# the samples those launches held: what each route of a circuit took, whose
+# stages walk through every batch size (core.bootstrap.small_batch)
+SAMPLES = dict.fromkeys(LAUNCHES, 0)
 
 # Largest batch whose key switch takes the gather arm; a larger one takes the
 # tensor-core arm. Measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py:
@@ -72,7 +76,14 @@ SMEM_MAX = 232448           # bytes of shared memory a block may use on sm_90
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = SAMPLES[name] = 0
+
+
+def count_launch(name: str, B: int) -> None:
+    """One launch of kernel `name` on B samples; called where a wrapper has
+    launched its kernel, and nowhere else."""
+    LAUNCHES[name] += 1
+    SAMPLES[name] += B
 
 
 # ------------------------------------------------------------------ tables
@@ -157,6 +168,20 @@ def _check_params(params: TfheParams) -> None:
         raise ValueError("the CUDA kernels take k = 1, l = 2 and 64 <= N <= 2048")
 
 
+def max_batch(N: int) -> int:
+    """The largest batch the kernels index. The C entry points take B and the
+    accumulator's strides as int: the (k+1)*N*B words of the accumulator stay
+    under 2^31 (1,048,575 samples at N = 1024); the tensor-core arm of the key
+    switch puts KS_MMA_ROWS samples on each of at most 65,535 rows of its grid."""
+    return min((2 ** 31 - 1) // (2 * N), 65535 * KS_MMA_ROWS)
+
+
+def _check_batch(B: int, params: TfheParams) -> None:
+    if not 1 <= B <= max_batch(params.N):
+        raise ValueError(f"batch of {B}: the CUDA kernels take 1 to {max_batch(params.N)} "
+                         f"samples at N = {params.N}; bootstrap a larger batch in parts")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -165,6 +190,7 @@ def _acc_rows(acc_t: torch.Tensor, params: TfheParams) -> torch.Tensor:
     """acc_t int32[k+1, N, B] -> a fresh contiguous int32[B, k+1, N] the
     kernels update in place."""
     _expect(acc_t, torch.int32, (params.k + 1, params.N, acc_t.shape[-1]), "acc_t")
+    _check_batch(acc_t.shape[-1], params)
     return acc_t.permute(2, 0, 1).clone(memory_format=torch.contiguous_format)
 
 
@@ -230,6 +256,7 @@ def cmux_delta(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
         return cmux_delta_ref(dec_t, bk_j, bksh_j, params)
     _check_params(params)
     B = dec_t.shape[-1]
+    _check_batch(B, params)
     _expect(dec_t, torch.int32, (params.kpl, params.N, B), "dec_t")
     _check_bk(bk_j, bksh_j, (), params)
     dec = dec_t.permute(2, 0, 1).contiguous()
@@ -239,7 +266,7 @@ def cmux_delta(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
     check(library().tfhe_cmux_delta(
         dec.data_ptr(), bk_j.data_ptr(), bksh_j.data_ptr(), tab.data_ptr(), out.data_ptr(),
         B, params.N, S, nbuf, _stream(dec)))
-    LAUNCHES["cmux_delta"] += 1
+    count_launch("cmux_delta", B)
     return out.permute(1, 2, 0)
 
 
@@ -265,7 +292,7 @@ def blind_rotate_step(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch.Ten
     _expect(bara_j, torch.int32, (1, acc.shape[0]), "bara_j")
     _check_bk(bk_j, bksh_j, (), params)
     _launch_rotate(acc, bara_j.T.contiguous(), bk_j, bksh_j, params, form)
-    LAUNCHES["blind_rotate_step"] += 1
+    count_launch("blind_rotate_step", acc.shape[0])
     return acc.permute(1, 2, 0)
 
 
@@ -294,7 +321,7 @@ def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.T
     _expect(bara, torch.int32, (n, acc.shape[0]), "bara")
     _check_bk(bk_rows, bksh_rows, (n,), params)
     _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params, form)
-    LAUNCHES["blind_rotate_fused"] += 1
+    count_launch("blind_rotate_fused", acc.shape[0])
     return acc.permute(1, 2, 0)
 
 
@@ -337,7 +364,7 @@ def _launch_keyswitch(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfhePar
         acc.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
         B, params.N, C, params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split,
         _stream(acc)))
-    LAUNCHES["keyswitch"] += 1
+    count_launch("keyswitch", B)
     return r, ext
 
 
@@ -406,6 +433,6 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
         tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
         B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, C, params.ks_t,
         params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
-    LAUNCHES["blind_rotate_ks_fused"] += 1
-    LAUNCHES["keyswitch"] += 1
+    count_launch("blind_rotate_ks_fused", B)
+    count_launch("keyswitch", B)
     return r, ext

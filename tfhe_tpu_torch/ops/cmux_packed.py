@@ -8,7 +8,8 @@ the plain-torch version (``*_ref``, built from ``core.bootstrap``); a CUDA
 tensor launches ``csrc/blind_rotate_small.cu`` (one thread-block cluster of
 four or two CTAs per sample, ``small_cluster``) or raises. Each launch of that
 kernel adds one to ``cmux.LAUNCHES["blind_rotate_fused_packed"]``, each launch
-of the key-switch kernel behind it one to ``cmux.LAUNCHES["keyswitch"]``.
+of the key-switch kernel behind it one to ``cmux.LAUNCHES["keyswitch"]``, and
+its batch to the same names of ``cmux.SAMPLES`` (``cmux.count_launch``).
 
 | wrapper                      | what it launches                            |
 |------------------------------|---------------------------------------------|
@@ -28,8 +29,8 @@ from .. import ntt
 from ..params import TfheParams
 from ..core import bootstrap as bs
 from ._build import check, library
-from .cmux import (LAUNCHES, _check_params, _check_tks, _expect, _kernel_tables, _on_cuda,
-                   _acc_rows, _stream, keyswitch_plan, keyswitch_ref)
+from .cmux import (_acc_rows, _check_batch, _check_params, _check_tks, _expect, _kernel_tables,
+                   _on_cuda, _stream, count_launch, keyswitch_plan, keyswitch_ref)
 
 LANE = 128
 N_MAX = 1024    # the kernel's rows, and two steps' key rows, have to fit in shared memory
@@ -103,6 +104,7 @@ def blind_rotate_fused_packed(acc_p: torch.Tensor, bara: torch.Tensor, bk_ntt: t
     if N % LANE or acc_p.shape[0] % k1:
         raise ValueError("acc_p: want int32[(k+1)*B, N/128, 128]")
     B = acc_p.shape[0] // k1
+    _check_batch(B, params)
     _expect(acc_p, torch.int32, (k1 * B, N // LANE, LANE), "acc_p")
     n = bara.shape[0]
     bara_b = _check_bara(bara, B)
@@ -122,7 +124,7 @@ def _launch_packed(acc: torch.Tensor, bara_b: torch.Tensor, bk_ntt: torch.Tensor
         acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
         tab.data_ptr(), B, n, params.N, params.bk_Bgbit, params.decomp_offset, cluster,
         _stream(acc)))
-    LAUNCHES["blind_rotate_fused_packed"] += 1
+    count_launch("blind_rotate_fused_packed", B)
     return acc
 
 
@@ -165,6 +167,6 @@ def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt
         tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
         B, n, params.N, params.bk_Bgbit, params.decomp_offset, cluster, C, params.ks_t,
         params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
-    LAUNCHES["blind_rotate_fused_packed"] += 1
-    LAUNCHES["keyswitch"] += 1
+    count_launch("blind_rotate_fused_packed", B)
+    count_launch("keyswitch", B)
     return r, ext
