@@ -71,7 +71,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               must equal the plain route byte for byte, and the 4-bit
               matmul / cannon_matmul / vector_sum must match the golden
               SHA-256 tfhe_tpu computed on the CPU;
- 10. profile  one 16-bit add and one 8x8 matmul under torch.profiler: device
+ 10. chunk    (after kernels) the bootstrap with its batch cap forced: 2,500
+              samples in parts of 1,000 through K4 and the key switch, 250 in
+              parts of 100 through K5, byte-equal to the unchunked calls; the
+              cap this card derives;
+ 11. native   (after main) 8 samples through K5 and through K4, as the
+              bootstrap takes them, against native_ref.bootstrap_batch (the
+              reference's C++ engine on the host), byte-equal;
+ 12. noise    (after main) 4,096 AND gates at PARAMS_110 in batches of 256:
+              failures (none allowed), |phase error| / (1/8) and the
+              per-sample variance beside the noise models;
+ 13. parallel (after apps) parallel.dryrun at world 4, every rank on this card
+              over gloo, then the full-width shapes with the reference's keys
+              (DP AND at B = 256, dp 2 x ks 2 AND and XOR at B = 256, a 16-bit
+              multiply one number a rank, Cannon 2x2 at 16 bits): each result
+              decrypts right and equals this process's single-process result
+              byte for byte; the ranks' launches and samples are the
+              "parallel" path; four processes sharing one card give no
+              scaling number;
+ 14. profile  one 16-bit add and one 8x8 matmul under torch.profiler: device
               time by kernel and the device's idle share.
 
 No phase catches a failure and goes on, and no app or wrapper moves to the
@@ -1366,6 +1384,308 @@ def phase_linalg_golden(sk) -> None:
         f"{h.hexdigest()}")
 
 
+def random_samples(params, B: int, seed: int):
+    """B random LWE samples on the card (a, b uniform, cv 0): every sample a
+    ciphertext of its own."""
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lo, hi = -(1 << 31), 1 << 31
+    return LweCiphertext(
+        torch.randint(lo, hi, (B, params.n), generator=gen, device="cuda").to(torch.int32),
+        torch.randint(lo, hi, (B,), generator=gen, device="cuda").to(torch.int32),
+        torch.zeros(B, dtype=torch.float32, device="cuda"))
+
+
+def expect_same_ct(label: str, got, want) -> None:
+    """a and b byte-equal, cv equal to rtol 1e-6 (a float32 variance)."""
+    if not (torch.equal(got.a.cpu(), want.a.cpu()) and torch.equal(got.b.cpu(), want.b.cpu())):
+        raise AssertionError(f"{label}: a or b differ")
+    if not torch.allclose(got.cv.cpu(), want.cv.cpu(), rtol=1e-6, atol=0.0):
+        raise AssertionError(f"{label}: cv differs")
+
+
+CHUNKS = ((2500, 1000), (250, 100))     # (batch, forced cap)
+
+
+def phase_chunk(sk, smi: str) -> None:
+    """The bootstrap of a batch above its cap, in parts: with the cap forced,
+    2,500 samples in parts of 1,000 (K4 and the key switch) and 250 in parts
+    of 100 (K5) must give the unchunked call's bytes; the launch counts show
+    the parts and their kernels. Prints the cap this card derives."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
+    dev = torch.device("cuda", torch.cuda.current_device())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    keys = (cloud.bk_ntt, cloud.bk_ntt_shoup, cloud.bk_rows, cloud.bk_rows_shoup,
+            cloud.ks_table, cloud.ks_table_perm)
+    key_bytes = sum(t.numel() * t.element_size() for t in keys)
+    cap = bs.batch_cap(dev, cloud)
+    log(f"[chunk] cap this card derives at PARAMS_110: {cap} samples a bootstrap call "
+        f"(cmux.max_batch {cmux.max_batch(params.N)}; memory: ({total} - {key_bytes} bytes of "
+        f"keys) / {bs.PEAK_BYTES_PER_SAMPLE} = {(total - key_bytes) // bs.PEAK_BYTES_PER_SAMPLE}) "
+        f"({smi})")
+    for B, forced in CHUNKS:
+        x = random_samples(params, B, seed=B)
+        bs.bootstrap(x, gates.MU, cloud)                 # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = bs.bootstrap(x, gates.MU, cloud)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        saved = bs.batch_cap
+        bs.batch_cap = lambda device, cloud, forced=forced: forced
+        try:
+            cmux.reset_launches()
+            t0 = time.perf_counter()
+            parts = bs.bootstrap(x, gates.MU, cloud)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()["launches"]
+        finally:
+            bs.batch_cap = saved
+        sizes = [min(forced, B - s) for s in range(0, B, forced)]
+        want = {"blind_rotate_fused_packed": sum(bs.small_batch(b) for b in sizes),
+                "blind_rotate_ks_fused": sum(not bs.small_batch(b) for b in sizes)}
+        want["keyswitch"] = len(sizes)
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"[chunk] B={B} cap {forced}: launches {got}, want {want}")
+        expect_same_ct(f"[chunk] B={B} in parts of {forced}", parts, whole)
+        log(f"[chunk] bootstrap B={B} with the cap forced to {forced}: parts {sizes}, launches "
+            f"{got}; byte-equal to the unchunked call ({ms:.3f} ms in parts, {whole_ms:.3f} ms "
+            f"whole; {smi})")
+
+
+def phase_native(sk, smi: str) -> None:
+    """K5 and K4, as the port's bootstrap takes them, against the reference's
+    C++ engine on the host (native_ref.bootstrap_batch) at PARAMS_110 on 8
+    random samples: a and b byte-equal."""
+    from tfhe_tpu_torch import gates, native_ref
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
+    t0 = time.perf_counter()
+    native_ref.build()
+    build_s = time.perf_counter() - t0
+    x = random_samples(params, 8, seed=808)
+    t0 = time.perf_counter()
+    want_a, want_b = native_ref.bootstrap_batch(sk, x.a.cpu().numpy(), x.b.cpu().numpy(), gates.MU)
+    host_s = time.perf_counter() - t0
+    saved = bs.SMALL_BATCH_MAX
+    for kernel, small_max in (("blind_rotate_fused_packed", saved), ("blind_rotate_ks_fused", 0)):
+        bs.SMALL_BATCH_MAX = small_max            # 0: the batch takes K4
+        try:
+            cmux.reset_launches()
+            out = bs.bootstrap(x, gates.MU, cloud)
+            torch.cuda.synchronize()
+        finally:
+            bs.SMALL_BATCH_MAX = saved
+        if cmux.LAUNCHES[kernel] != 1:
+            raise AssertionError(f"[native] the bootstrap of 8 did not take {kernel}: "
+                                 f"{dict(cmux.LAUNCHES)}")
+        if not (np.array_equal(out.a.cpu().numpy(), want_a)
+                and np.array_equal(out.b.cpu().numpy(), want_b)):
+            raise AssertionError(f"[native] {kernel} differs from native_ref.bootstrap_batch")
+        log(f"[native] bootstrap of 8 random samples through {kernel}: byte-equal to the "
+            f"reference's C++ engine (native_ref.bootstrap_batch, {native_ref.num_threads()} "
+            f"OpenMP threads, {host_s:.3f} s on the host; built in {build_s:.1f} s) ({smi})")
+
+
+NOISE_GATES, NOISE_BATCH = 4096, 256
+
+
+def phase_noise(sk, smi: str) -> dict:
+    """NOISE_GATES real AND gates at PARAMS_110 in batches of NOISE_BATCH, after
+    tools/noise_stats.py: failures (none allowed) and the decrypted phase's
+    error relative to the +-1/8 target; its variance is the post-gate sample
+    variance the noise models predict."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core.crypt import decrypt_phase
+    from tfhe_tpu_torch.utils import phasesim
+    params = sk.params
+    rng = np.random.RandomState(42)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(42)
+    mu = float(gates.MU)
+    fails, errs, kernel_s = 0, [], 0.0
+    for _ in range(NOISE_GATES // NOISE_BATCH):
+        a = rng.randint(0, 2, size=NOISE_BATCH).astype(np.int32)
+        b = rng.randint(0, 2, size=NOISE_BATCH).astype(np.int32)
+        ca, cb = tt.encrypt_bits(sk, a, gen, "cuda"), tt.encrypt_bits(sk, b, gen, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gates.AND(ca, cb, sk.cloud)
+        torch.cuda.synchronize()
+        kernel_s += time.perf_counter() - t0
+        want = a & b
+        fails += int(np.sum(tt.decrypt_bits(sk, out) != want))
+        errs.append(decrypt_phase(sk, out).astype(np.float64) - np.where(want != 0, mu, -mu))
+    err = np.concatenate(errs)
+    rel = np.abs(err) / mu
+    var = float(np.mean((err / 2.0 ** 32) ** 2))
+    models = {"average": phasesim.sample_var_average(params),
+              "measured (tfhe_tpu's)": phasesim.SAMPLE_VAR_MEASURED_110,
+              "tracked": phasesim.sample_var_tracked(params)}
+    log(f"[noise] {NOISE_GATES} AND gates at PARAMS_110 in batches of {NOISE_BATCH}: {fails} "
+        f"failures; |phase error| / (1/8): mean {rel.mean():.5f}, p99 "
+        f"{np.percentile(rel, 99):.5f}, max {rel.max():.5f} (1.0 is the decision boundary); "
+        f"{kernel_s:.3f} s of gates ({smi})")
+    log(f"[noise] per-sample variance of the gate output {var:.4e} (sigma {np.sqrt(var):.4e} of "
+        f"the torus, {np.sqrt(var) * 8:.5f} of 1/8), beside the models: "
+        + ", ".join(f"{k} {v:.4e} (ratio {var / v:.3f})" for k, v in models.items()))
+    if fails:
+        raise AssertionError(f"[noise] {fails} of {NOISE_GATES} AND gates decrypt wrong")
+    return {"failures": fails, "mean": float(rel.mean()), "p99": float(np.percentile(rel, 99)),
+            "max": float(rel.max()), "variance": var}
+
+
+PARALLEL_WORLD = 4
+PARALLEL_MUL = 4          # 16-bit numbers of the whole-circuit multiply, one a rank
+
+
+def cannon_schedule(a, b, cloud):
+    """The schedule of parallel.cannon.cannon_matmul_mesh on the stacked
+    [d, d] batch in one process: the skew, then d rounds of arith.mul and
+    arith.add with the rows rolled left and the columns up by one between."""
+    from tfhe_tpu_torch import arith
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    d = a.batch_shape[0]
+    ii, jj = np.meshgrid(np.arange(d), np.arange(d), indexing="ij")
+
+    def take(ct, rows, cols):
+        r, c = torch.from_numpy(rows).to(ct.b.device), torch.from_numpy(cols).to(ct.b.device)
+        return LweCiphertext(ct.a[r, c], ct.b[r, c], ct.cv[r, c])
+
+    a_sk, b_sk = take(a, ii, (jj + ii) % d), take(b, (ii + jj) % d, jj)
+    acc = None
+    for _ in range(d):
+        prod = arith.mul(a_sk, b_sk, cloud)
+        acc = prod if acc is None else arith.add(acc, prod, cloud)
+        a_sk, b_sk = take(a_sk, ii, (jj + 1) % d), take(b_sk, (ii + 1) % d, jj)
+    return acc
+
+
+def parallel_rank(rank: int, world: int, device, inputs: dict) -> dict:
+    """One rank of the full-width [parallel] shapes: the reference's keys at
+    PARAMS_110 on this rank's device, each shape run once to warm, then once
+    timed between barriers with the launch counts set to 0 before. Returns
+    the results (numpy), each shape's wall ms and the counts."""
+    import torch.distributed as dist
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    from tfhe_tpu_torch.ops import cmux
+    from tfhe_tpu_torch.parallel.cannon import cannon_matmul_mesh, make_mesh2d
+    from tfhe_tpu_torch.parallel.mesh import (make_mesh, make_mesh2d_dp_ks, sharded_circuit,
+                                              sharded_gate2, sharded_gate2_tp_ks)
+    sk = tt.keygen_reference(tt.PARAMS_110, device=device)
+    cloud = sk.cloud
+    ct = {k: LweCiphertext(*(torch.from_numpy(v).to(device) for v in arrs))
+          for k, arrs in inputs.items()}
+    mesh, dpks, grid = (make_mesh(world, device=device), make_mesh2d_dp_ks(2, 2, device=device),
+                        make_mesh2d(2, device=device))
+    shapes = {
+        "dp AND": lambda: sharded_gate2("AND", ct["x"], ct["y"], cloud, mesh),
+        "dp x ks AND": lambda: sharded_gate2_tp_ks("AND", ct["x"], ct["y"], cloud, dpks),
+        "dp x ks XOR": lambda: sharded_gate2_tp_ks("XOR", ct["x"], ct["y"], cloud, dpks),
+        "mul16": lambda: sharded_circuit(arith.mul, (ct["ma"], ct["mb"]), cloud, mesh),
+        "cannon": lambda: cannon_matmul_mesh(ct["ca"], ct["cb"], cloud, grid),
+    }
+    for fn in shapes.values():
+        fn()
+    torch.cuda.synchronize(device)
+    cmux.reset_launches()
+    outs, ms = {}, {}
+    for name, fn in shapes.items():
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        outs[name] = tuple(v.cpu().numpy() for v in (out.a, out.b, out.cv))
+    return {"out": outs, "ms": ms, "launches": dict(cmux.LAUNCHES),
+            "samples": dict(cmux.SAMPLES)}
+
+
+def phase_parallel(sk, x, y, bits_x, bits_y, smi: str) -> dict:
+    """parallel.dryrun at world PARALLEL_WORLD with every rank on this card
+    (gloo: NCCL takes one rank a card), then the full-width shapes, each
+    decrypted and held against this process's single-process result on the
+    same keys and inputs. Returns the ranks' summed counts."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith, gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.parallel import dryrun
+    note = f"{PARALLEL_WORLD} processes sharing one H100: not a scaling number"
+    t0 = time.perf_counter()
+    lines = dryrun.run(PARALLEL_WORLD, dryrun.dryrun_multichip)[0]
+    for line in lines:
+        log(f"[parallel] {line}")
+    log(f"[parallel] parallel.dryrun {PARALLEL_WORLD}: {time.perf_counter() - t0:.1f} s of wall "
+        f"time, process start and keys included ({note}; {smi})")
+    if len(lines) != 6 or not all(line.endswith("values OK") for line in lines):
+        raise AssertionError(f"[parallel] the dry run did not pass every shape: {lines}")
+
+    params, cloud = sk.params, sk.cloud
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(606)
+    rng = np.random.RandomState(606)
+    va, vb = rng.randint(0, 1 << 16, size=(2, PARALLEL_MUL))
+    mat_a, mat_b = rng.randint(0, 1 << 8, size=(2, 2, 2))
+    enc = {"x": x, "y": y,
+           "ma": arith.encrypt_int(sk, va, 16, gen, "cuda"),
+           "mb": arith.encrypt_int(sk, vb, 16, gen, "cuda"),
+           "ca": arith.encrypt_int(sk, mat_a, 16, gen, "cuda"),
+           "cb": arith.encrypt_int(sk, mat_b, 16, gen, "cuda")}
+    inputs = {k: tuple(v.cpu().numpy() for v in (c.a, c.b, c.cv)) for k, c in enc.items()}
+    t0 = time.perf_counter()
+    ranks = dryrun.run(PARALLEL_WORLD, parallel_rank, inputs)
+    wall = time.perf_counter() - t0
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+
+    def lwe(arrs):
+        return LweCiphertext(*(torch.from_numpy(v).cuda() for v in arrs))
+
+    worst_cv = bs._bootstrap_variance(params) + params.n_extract * params.ks_t * params.ks_stdev ** 2
+    one = {"dp AND": gates.AND(x, y, cloud),
+           "dp x ks AND": gates.AND(x, y, cloud),
+           "dp x ks XOR": gates.XOR(x, y, cloud),
+           "mul16": arith.mul(enc["ma"], enc["mb"], cloud),
+           "cannon": cannon_schedule(enc["ca"], enc["cb"], cloud)}
+    truth = {"dp AND": bits_x & bits_y, "dp x ks AND": bits_x & bits_y,
+             "dp x ks XOR": bits_x ^ bits_y, "mul16": signed(va * vb, 16),
+             "cannon": signed(mat_a @ mat_b, 16)}
+    for name, want in one.items():
+        got = lwe(ranks[0]["out"][name])
+        for r in range(1, PARALLEL_WORLD):
+            if not all(np.array_equal(g, w) for g, w in zip(ranks[r]["out"][name],
+                                                             ranks[0]["out"][name])):
+                raise AssertionError(f"[parallel] {name}: rank {r} returned another result")
+        if name.startswith("dp x ks"):
+            # the split key switch charges the worst-case cv (ks_finalize(nnz=None))
+            want = LweCiphertext(want.a, want.b, torch.full_like(want.cv, worst_cv))
+        expect_same_ct(f"[parallel] {name}", got, want)
+        plain = (tt.decrypt_bits(sk, got) if name.startswith("dp")
+                 else arith.decrypt_int(sk, got))
+        if not np.array_equal(plain, truth[name]):
+            raise AssertionError(f"[parallel] {name} decrypts to {plain}, want {truth[name]}")
+        slowest = max(r["ms"][name] for r in ranks)
+        log(f"[parallel] {name}, PARAMS_110, world {PARALLEL_WORLD}: decrypts right; every rank's "
+            f"result byte-equal to the single-process one; {slowest:.3f} ms on the slowest rank "
+            f"({note}; {smi})")
+    total = {"launches": {}, "samples": {}}
+    for r in ranks:
+        add_counts(total, r)
+    log(f"[parallel] the full-width shapes: {wall:.1f} s of wall time with process start and keys; "
+        f"launches and samples over the ranks {total}")
+    expect_routes("parallel", total, ("blind_rotate_fused_packed", "keyswitch"))
+    return total
+
+
 def phase_profile(label: str, fn, smi: str) -> None:
     """One fn() under torch.profiler: device time by kernel, and the share of
     the device's span (first kernel start to last kernel end) in which no
@@ -1445,8 +1765,13 @@ def main() -> int:
 
     timed = phase_kernels(sk, x, dev["smi"])
     log_peak("kernels", dev["smi"])
+    phase_chunk(sk, dev["smi"])
+    log_peak("chunk", dev["smi"])
     launches = phase_main(sk, golden_in, x, y, bits_x, bits_y)
     log_peak("main", dev["smi"])
+    phase_native(sk, dev["smi"])
+    phase_noise(sk, dev["smi"])
+    log_peak("noise", dev["smi"])
     and_rate = phase_timing(sk, x, y, bits_x & bits_y, dev["smi"])["kernel"]["bootstraps_per_s"]
     circuit_counts, cx, cy = phase_circuits(sk, dev["smi"])
     phase_arms(cx, cy, dev["smi"])
@@ -1461,6 +1786,8 @@ def main() -> int:
     phase_linalg_plain()
     phase_linalg_golden(sk)
     log_peak("apps", dev["smi"])
+    parallel_counts = phase_parallel(sk, x, y, bits_x, bits_y, dev["smi"])
+    log_peak("parallel", dev["smi"])
     phase_profile("add16 PARAMS_110, one number", lambda: cx + cy, dev["smi"])
     phase_profile(f"matmul {MATRIX}x{MATRIX} {NBITS}-bit PARAMS_110",
                   lambda: linalg.matmul(cma, cmb, sk.cloud), dev["smi"])
@@ -1468,7 +1795,7 @@ def main() -> int:
 
     paths = {"and": launches["and"], "large_batch": launches["large_batch"],
              "circuits": circuit_counts, "linalg": linalg_counts, "linreg": linreg_counts,
-             "apps": apps_counts}
+             "apps": apps_counts, "parallel": parallel_counts}
 
     def counted(counter: str) -> dict:
         by_path = {path: c["launches"].get(counter, 0) for path, c in paths.items()}

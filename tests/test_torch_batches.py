@@ -172,3 +172,100 @@ def test_linreg_200x10_batches(batches):
     assert seen[0] == 2 * 32_000 == max(seen)
     assert sum(seen) < numerical / 4
     assert all(_by_route(s)[i] > 0 for s in (seen,) for i in (0, 1))
+
+
+# ------------------------------------------------- batches split in parts
+
+@pytest.fixture(scope="module")
+def toy_sk():
+    return pt.keygen(pt.PARAMS_TOY, seed=7, device="cpu")
+
+
+def _random_samples(params, B, seed):
+    rng = np.random.RandomState(seed)
+    return LweCiphertext(
+        torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, size=(B, params.n)).astype(np.int32)),
+        torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, size=B).astype(np.int32)),
+        torch.zeros(B, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("B", [7, 8, 20, 21])
+@pytest.mark.parametrize("route", ["split", "fused", "woks", "per-sample mu"])
+def test_forced_cap_gives_the_unchunked_bytes(toy_sk, monkeypatch, B, route):
+    """With the cap forced to 7, a batch of B is bootstrapped in parts of 7
+    and a remainder, and the result is the unchunked one, byte for byte."""
+    x = _random_samples(toy_sk.params, B, seed=B)
+    mu = gates.MU
+    if route == "per-sample mu":
+        mu = torch.from_numpy(np.where(np.arange(B) % 3, gates.MU, gates.MU16).astype(np.int32))
+    fn = bs.bootstrap_woks if route == "woks" else bs.bootstrap
+    with pt.config.overrides(TFHE_TPU_FUSEKS="1" if route == "fused" else "0"):
+        whole = fn(x, mu, toy_sk.cloud)
+        parts = []
+        name = "_bootstrap_woks_whole" if route == "woks" else "_bootstrap_whole"
+        inner = getattr(bs, name)
+        monkeypatch.setattr(bs, name, lambda c, m, k: parts.append(c.b.shape[0]) or inner(c, m, k))
+        monkeypatch.setattr(bs, "CPU_MAX_BATCH", 7)
+        split = fn(x, mu, toy_sk.cloud)
+    assert parts == [7] * (B // 7) + ([B % 7] if B % 7 else [])
+    whole = whole if isinstance(whole, tuple) else (whole.a, whole.b, whole.cv)
+    split = split if isinstance(split, tuple) else (split.a, split.b, split.cv)
+    for w, s in zip(whole, split, strict=True):
+        assert torch.equal(w, s)
+
+
+def _key_bytes(params) -> int:
+    """Bytes of a CloudKey's six tensors at `params` (core/keys.py)."""
+    from tfhe_tpu_torch import ntt
+    from tfhe_tpu_torch.core.keys import _pad_to
+    bk = params.n * len(ntt.PRIMES) * params.kpl * (params.k + 1) * params.N * 4
+    ks = params.n_extract * params.ks_t * (params.ks_base - 1) * 4 * _pad_to(params.n + 1, 128)
+    return 4 * bk + 2 * ks
+
+
+def test_cap_of_an_80gb_card(monkeypatch):
+    """The cap derived for an H100 80GB (81,079 MiB) at PARAMS_110: the
+    kernels' index limit, below what memory allows. It splits the opening AND
+    of a 16-bit 32 x 32 matmul (32^3 x 136 = 4,456,448 samples) into four
+    parts and a remainder, and leaves the largest batch of the cells (the
+    regression's 272,000) whole (a stand-in bootstrap records the parts)."""
+    params = pt.PARAMS_110
+    cap = bs.memory_cap(81_079 * 2 ** 20, _key_bytes(params), params.N)
+    assert cap == cmux.max_batch(params.N) == 1_048_575
+    assert (81_079 * 2 ** 20 - _key_bytes(params)) // bs.PEAK_BYTES_PER_SAMPLE > cap
+    assert bs.memory_cap(16 * 2 ** 30, _key_bytes(params), params.N) < cap   # a 16 GiB card
+    seen = []
+
+    def whole(x, mu, cloud):
+        seen.append(x.b.shape[0])
+        return x
+
+    monkeypatch.setattr(bs, "_bootstrap_whole", whole)
+    monkeypatch.setattr(bs, "batch_cap", lambda device, cloud: cap)
+    first_and = 32 ** 3 * (16 * 17 // 2)
+    x = _zeros((32 ** 3, 136), n=1)
+    out = gates.gate2("AND", x, x, None)
+    assert first_and == 4_456_448 and out.batch_shape == (32 ** 3, 136)
+    assert seen == [cap] * 4 + [first_and - 4 * cap]
+    seen.clear()
+    gates.gate2("AND", *(_zeros((272_000,), n=1),) * 2, None)
+    assert seen == [272_000]
+
+
+def test_cap_is_read_once_per_card(monkeypatch):
+    """On a card the cap comes from the device's total memory, read once
+    (cached by card, keys and N), never from free memory at call time."""
+    calls = []
+
+    class Props:
+        total_memory = 81_079 * 2 ** 20
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: calls.append(i) or Props())
+    bs._card_cap.cache_clear()
+    try:
+        for _ in range(3):
+            assert bs._card_cap(0, 10 ** 8, 1024) == cmux.max_batch(1024)
+        assert calls == [0]
+    finally:
+        bs._card_cap.cache_clear()

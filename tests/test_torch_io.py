@@ -187,3 +187,18 @@ def test_reference_fixture():
     assert [int((bits[i:i + 16] << np.arange(16)).sum()) for i in (0, 16)] == [2017, 42]
     # cv is a double on the wire and float32 in memory
     np.testing.assert_allclose(ct.cv.numpy(), sk.params.ks_stdev ** 2, rtol=1e-6)
+
+
+def test_io_is_an_attribute_of_the_package():
+    """``import tfhe_tpu_torch as tt; tt.io`` works in a fresh interpreter,
+    as ``tfhe_tpu.io`` does, without importing the module by name first."""
+    import subprocess
+    import sys
+    code = ("import tfhe_tpu_torch as tt\n"
+            "assert tt.io.export_cloud_keyset and tt.io.import_ciphertexts\n"
+            "print(tt.io.__name__)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["tfhe_tpu_torch.io"]

@@ -34,6 +34,7 @@ from . import ntt
 from . import numeric
 from . import arith
 from . import linalg
+from . import io
 from .cipher import CipherInt
 
 __version__ = "0.1.0"

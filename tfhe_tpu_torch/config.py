@@ -14,6 +14,8 @@ over the environment:
   instead of the full-adder Dadda tree (default the tree).
 - ``TFHE_TPU_NOISE_MODEL=average|measured|tracked``: the noise accounting
   the compressor planner certifies against (default "average").
+- ``REF_DIR``: the reference checkout that ``ref_oracle`` compiles (default
+  ``/root/reference/gpuParallel``, as ``native/Makefile``).
 
 The circuit flags change the bootstraps a circuit runs, never its result.
 """
@@ -77,3 +79,8 @@ def noise_model() -> str:
     if v not in ("average", "measured", "tracked"):
         raise ValueError(f"TFHE_TPU_NOISE_MODEL={v!r}: want average|measured|tracked")
     return v
+
+
+def ref_dir() -> str:
+    """Location of the reference checkout (the reference-oracle build)."""
+    return flag("REF_DIR", "/root/reference/gpuParallel")

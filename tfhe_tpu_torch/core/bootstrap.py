@@ -12,6 +12,10 @@ and take these plain pieces for CPU tensors. Every route gives the same bits:
   and key switch;
 - split (default on the CPU): a blind-rotate wrapper, then
   ``sample_extract`` and the one-hot int8 matmul ``key_switch``;
+- a flat batch above ``batch_cap`` is bootstrapped in equal chunks and a
+  remainder, whose outputs are concatenated (``tfhe_tpu``'s
+  ``_chunked_over_batch``): the samples are independent and the math exact,
+  so the result is the unchunked one, byte for byte;
 - the blind rotate of a flat batch goes to the kernel that is faster for its
   size (``small_batch``): the small-batch kernel of ``ops.cmux_packed`` (K5,
   a cluster of four or two CTAs per sample: every stage of a serial circuit,
@@ -21,6 +25,8 @@ and take these plain pieces for CPU tensors. Every route gives the same bits:
   that fill their last wave).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -174,15 +180,20 @@ def ks_recombine(sums: torch.Tensor) -> torch.Tensor:
 
 
 def ks_finalize(sums: torch.Tensor, b_ext: torch.Tensor, cv: torch.Tensor,
-                params: TfheParams, nnz: torch.Tensor) -> LweCiphertext:
-    """Recombine int8 limb-plane partial sums into the key-switched sample.
+                params: TfheParams, nnz: torch.Tensor | None = None) -> LweCiphertext:
+    """Recombine int8 limb-plane partial sums (possibly all-reduced over the
+    ranks of a sharded key switch) into the key-switched sample.
 
     nnz: int32[B] count of nonzero digits; the reference adds one ks-sample
-    variance per nonzero digit (lwe-keyswitch-functions.cu:119-125)."""
+    variance per nonzero digit (lwe-keyswitch-functions.cu:119-125). Without
+    it the worst case, n_extract * t digits, is assumed."""
     n = params.n
     r = ks_recombine(sums)
-    cv_out = cv + nnz.to(torch.float32) * params.ks_stdev ** 2
-    return LweCiphertext(-r[:, :n], b_ext - r[:, n], cv_out)
+    if nnz is None:
+        cv_out = cv + float(params.n_extract * params.ks_t) * params.ks_stdev ** 2
+    else:
+        cv_out = cv + nnz.to(torch.float32) * params.ks_stdev ** 2
+    return LweCiphertext(-r[:, :n], b_ext - r[:, n], cv_out.expand(b_ext.shape))
 
 
 def key_switch(a_ext: torch.Tensor, b_ext: torch.Tensor, ks_table: torch.Tensor,
@@ -233,11 +244,72 @@ def _small(x: LweCiphertext, params: TfheParams) -> bool:
     return params.N <= cmux_packed.N_MAX and small_batch(x.b.shape[0])
 
 
+# ------------------------------------------------------------------ chunks
+
+# Device memory a sample of a bootstrap holds at the peak, beyond the keys:
+# 36.9 KiB measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py's
+# numerical regression (the AND batches of 272,000 samples; PERF.md), rounded up.
+PEAK_BYTES_PER_SAMPLE = 37 * 1024
+# The largest flat batch one call bootstraps on the CPU (the host's memory is
+# not the card's; tests set a small value to split small batches).
+CPU_MAX_BATCH = 1 << 16
+
+
+def memory_cap(total_bytes: int, key_bytes: int, N: int) -> int:
+    """The largest flat batch a card of `total_bytes` takes in one call with
+    `key_bytes` of keys on it: the smaller of the batch the kernels index
+    (``cmux.max_batch``) and the samples whose peak memory fits beside the keys."""
+    return max(1, min(cmux.max_batch(N), (total_bytes - key_bytes) // PEAK_BYTES_PER_SAMPLE))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_cap(index: int, key_bytes: int, N: int) -> int:
+    # read once per card: the caching allocator makes free memory wander, and
+    # a query at call time must never wait on the gate path's queued work
+    return memory_cap(torch.cuda.get_device_properties(index).total_memory, key_bytes, N)
+
+
+def batch_cap(device: torch.device, cloud) -> int:
+    """The largest flat batch one bootstrap call takes on `device`; a larger
+    one is split (``_chunked``)."""
+    if device.type != "cuda":
+        return CPU_MAX_BATCH
+    keys = (cloud.bk_ntt, cloud.bk_ntt_shoup, cloud.bk_rows, cloud.bk_rows_shoup,
+            cloud.ks_table, cloud.ks_table_perm)
+    key_bytes = sum(t.numel() * t.element_size() for t in keys)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _card_cap(index, key_bytes, cloud.params.N)
+
+
+def _chunked(impl, x: LweCiphertext, mu, cloud):
+    """impl(x, mu, cloud) over equal chunks of batch_cap() samples and a
+    remainder, outputs concatenated (an LweCiphertext, or a tuple of tensors).
+    A per-sample mu is split with the samples."""
+    B = x.b.shape[0]
+    cap = batch_cap(x.device, cloud)
+    if B <= cap:
+        return impl(x, mu, cloud)
+    per_sample = isinstance(mu, torch.Tensor) and mu.dim() > 0 and mu.shape[0] == B
+    parts = [impl(x[s:s + cap], mu[s:s + cap] if per_sample else mu, cloud)
+             for s in range(0, B, cap)]
+    if isinstance(parts[0], LweCiphertext):
+        return LweCiphertext(*(torch.cat([getattr(p, f) for p in parts])
+                               for f in ("a", "b", "cv")))
+    return tuple(torch.cat(vs) for vs in zip(*parts))
+
+
+# ------------------------------------------------------------------ routes
+
 def bootstrap_woks(x: LweCiphertext, mu, cloud):
     """Bootstrap without key switch: returns the extracted (a_ext, b_ext, cv)
     (ref tfhe_bootstrap_woKS_FFT, lwe-bootstrapping-functions-fft.cu:1834-1880).
 
-    x: flat batch [B]. mu: int32 scalar or [B], the output message amplitude."""
+    x: flat batch [B], split above batch_cap(). mu: int32 scalar or [B], the
+    output message amplitude."""
+    return _chunked(_bootstrap_woks_whole, x, mu, cloud)
+
+
+def _bootstrap_woks_whole(x: LweCiphertext, mu, cloud):
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
     k1, B, N = params.k + 1, x.b.shape[0], params.N
@@ -278,8 +350,14 @@ def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud) -> LweCiphertext:
 
 
 def bootstrap(x: LweCiphertext, mu, cloud) -> LweCiphertext:
-    """Full gate bootstrap (ref tfhe_bootstrap_FFT, lwe-bootstrapping-functions-fft.cu:1884)."""
+    """Full gate bootstrap (ref tfhe_bootstrap_FFT, lwe-bootstrapping-functions-fft.cu:1884).
+
+    x: flat batch [B], split above batch_cap()."""
+    return _chunked(_bootstrap_whole, x, mu, cloud)
+
+
+def _bootstrap_whole(x: LweCiphertext, mu, cloud) -> LweCiphertext:
     if fuseks_enabled(x.device) and cloud.params.k == 1:
         return _bootstrap_fused_ks(x, mu, cloud)
-    a_ext, b_ext, cv = bootstrap_woks(x, mu, cloud)
+    a_ext, b_ext, cv = _bootstrap_woks_whole(x, mu, cloud)
     return key_switch(a_ext, b_ext, cloud.ks_table, cv, cloud.params)

@@ -32,6 +32,12 @@ def dtot32(d: torch.Tensor) -> torch.Tensor:
     return (frac * (2.0 ** 32)).to(torch.int32)
 
 
+def t32tod(x: torch.Tensor) -> torch.Tensor:
+    """Torus32->double in [-1/2, 1/2) (ref numeric-functions.cu:38), as float32
+    like ``tfhe_tpu.numeric.t32tod``."""
+    return x.to(torch.int32).to(torch.float32) / (2.0 ** 32)
+
+
 def _is_pow2(Msize: int) -> bool:
     return Msize & (Msize - 1) == 0
 
@@ -53,6 +59,23 @@ def mod_switch_from_torus32(phase: torch.Tensor, Msize: int) -> torch.Tensor:
     interv = np.uint64((((1 << 63) // Msize) * 2) & 0xFFFFFFFFFFFFFFFF)
     phase64 = (_u32_np(phase) << np.uint64(32)) + interv // np.uint64(2)
     out = (phase64 // interv).astype(np.int64).astype(np.int32)
+    return torch.from_numpy(out).to(phase.device)
+
+
+def approx_phase(phase: torch.Tensor, Msize: int) -> torch.Tensor:
+    """Round a phase to the nearest multiple of 1/Msize (ref
+    numeric-functions.cu:47-56). Power-of-two Msize stays on the tensor's
+    device (an arithmetic shift right, then left, clears the same low bits as
+    the logical one); any other Msize uses the reference's uint64 formula on
+    the host."""
+    if _is_pow2(Msize):
+        shift = 32 - Msize.bit_length() + 1
+        u = phase + i32(1 << (shift - 1))              # wraps mod 2^32
+        return (u >> shift) << shift
+    interv = np.uint64((((1 << 63) // Msize) * 2) & 0xFFFFFFFFFFFFFFFF)
+    phase64 = (_u32_np(phase) << np.uint64(32)) + interv // np.uint64(2)
+    phase64 -= phase64 % interv
+    out = ((phase64 >> np.uint64(32)) & np.uint64(0xFFFFFFFF)).astype(np.int64).astype(np.int32)
     return torch.from_numpy(out).to(phase.device)
 
 
