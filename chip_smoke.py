@@ -39,8 +39,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               K5); then a batch beyond SMALL_BATCH_MAX the same way (K4, K3);
   5. timing   AND chained 5 times on the batch of 256, kernel route and plain
               route, in ms per batch and bootstraps/s;
-  6. circuits the serial-circuit path: 16-bit CipherInt operands at one
-              number per batch with the reference's keys at PARAMS_110; +, -,
+  6. circuits the serial-circuit path, eager (TFHE_TPU_CIRCUIT_JIT=0, as
+              recorded before circuits were graphs): 16-bit CipherInt operands
+              at one number per batch with the reference's keys at PARAMS_110; +, -,
               *, >, eq, abs, minimum and / must decrypt to the plaintext
               answer through K5 (launch counters), add16 must match the golden
               SHA-256 tfhe_tpu computed on the CPU, and each op's wall time
@@ -50,6 +51,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               of batch 3 must equal, byte for byte, the plain route (the same
               circuits on CPU tensors, where every wrapper takes its plain
               version);
+  6b. graph   the same eight ops and vector_add / vector_mul / vector_sum at
+              length 32 through arith.circuit's CUDA graphs (TFHE_TPU_CIRCUIT_JIT
+              auto, graphs that capture on a key's second call): the first
+              call eager, the second captures, then a replay on other
+              operands; each byte-equal (a, b, cv) to the eager run on
+              the same operands, with eager's launch counts, decrypting right;
+              add16 against the golden SHA-256; capture ms, replay and eager
+              wall ms in turns, the graphs held and their pools; add16 with the
+              key switch's tensor-core arm forced as a graph of its own; the
+              capture rule's sweep (an add of 1 to 128 numbers, replay beside
+              eager, the pools); add16's idle share under replay
+              (torch.profiler). The kernel nodes of every captured graph,
+              read through libcuda by function name, must be the launches the
+              wrappers counted during its capture, which each replay adds to
+              the counters, and K5's must be cluster kernel nodes.
+              The later phases run with the default graphs (auto; a key
+              captured after arith.CAPTURE_AFTER eager calls) and print how
+              many of their circuit calls repeat a key, were captured or
+              replayed;
   7. linalg   encrypted vectors and matrices, 16-bit numbers, the same keys:
               vector_add, vector_mul and vector_sum at length 32, matmul and
               cannon_matmul at 8x8 (one AND batch of 69,632 samples, then every
@@ -89,14 +109,16 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               byte for byte; the ranks' launches and samples are the
               "parallel" path; four processes sharing one card give no
               scaling number;
- 14. profile  one 16-bit add and one 8x8 matmul under torch.profiler: device
-              time by kernel and the device's idle share.
+ 14. profile  one 16-bit add (eager) and one 8x8 matmul under torch.profiler:
+              device time by kernel and the device's idle share.
 
 No phase catches a failure and goes on, and no app or wrapper moves to the
 CPU or to a plain version on its own: the plain route runs only where a phase
 asks for it, on CPU copies, to be compared with.
 
-The line before the last is a JSON object with the path's kernels; the last
+The line before the last is a JSON object with the path's kernels (the
+"graph" path: the launches the [graph] phase's replays made, as the graphs
+count them); the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script exits
 nonzero and prints no result.
 """
@@ -137,6 +159,9 @@ WIDE_RANDOM = 160      # random rows held against plain at the linalg and linreg
 ROUTE_SLACK = 1.08     # the kernel small_batch() picks may be this much slower than the other
 KS_CHECK = (1, 2, 3, 33, 64, 256)           # key switch against keyswitch_ref, both arms
 KS_SWEEP = (1, 2, 8, 16, 24, 32, 64, 128, 256)   # key switch beside torch._int_mm
+GRAPH_REPS = 5         # [graph]: replays and eager runs of each op, in turns
+REPLAY_A, REPLAY_B = -3021, 4099        # [graph]: the replays' operands, unlike the capture's
+GRAPH_SWEEP = (1, 4, 16, 32, 64, 128)   # [graph]: numbers of a 16-bit add, the capture rule
 # Peak rates the bounds are taken against (NVIDIA's H100 SXM data sheet): device
 # memory 3.35 TB/s, int8 tensor cores 1,979 TOP/s dense; int32 outside the
 # tensor cores: 64 lanes per SM at the card's maximum SM clock.
@@ -1040,6 +1065,329 @@ def phase_circuits_plain() -> None:
         f"the card equals the plain route byte for byte ({time.time() - t0:.1f} s)")
 
 
+def expect_byte_equal(label: str, got, want) -> None:
+    """a, b and cv of two ciphertexts identical."""
+    for f in ("a", "b", "cv"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{label}: {f} differs")
+
+
+def wall_ms(call) -> float:
+    """Host clock around call() between two synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def in_turns(call, reps: int) -> tuple:
+    """Medians of `reps` eager (TFHE_TPU_CIRCUIT_JIT=0) and replayed (auto,
+    a key already captured) wall ms of call(), taken in turns (eager, replay,
+    replay, eager, ...)."""
+    from tfhe_tpu_torch import config
+    times = {"0": [], "auto": []}
+    for i in range(reps):
+        for flag in (("0", "auto") if i % 2 == 0 else ("auto", "0")):
+            with config.overrides(TFHE_TPU_CIRCUIT_JIT=flag):
+                times[flag].append(wall_ms(call))
+    return tuple(sorted(v)[len(v) // 2] for v in (times["0"], times["auto"]))
+
+
+def graph_run(label: str, call, call2, check, smi: str, digest=None) -> dict:
+    """One op through arith.circuit's graphs (TFHE_TPU_CIRCUIT_JIT auto): call
+    runs it on the capture's operands, call2 on others. The first call is the
+    eager warm-up, the second captures and replays (equal to eager on its
+    operands), then call2 replays (equal to eager there, check() on its
+    output, the eager launch counts); the graph's kernel nodes against the
+    launches it replays (check_graph_nodes); wall ms of the capture, and of
+    replay and eager in turns. Returns the replay's counts."""
+    from tfhe_tpu_torch import arith, config
+    from tfhe_tpu_torch.ops import cmux
+
+    def ct(out):
+        return out.ct if hasattr(out, "ct") else out
+
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+        eager = ct(call())
+        cmux.reset_launches()
+        eager2 = ct(call2())
+        torch.cuda.synchronize()
+        eager_counts = read_counts()
+    graphs, pool = arith.GRAPHS.graphs(), arith.GRAPHS.pool_bytes()
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="auto"):
+        call()                                           # the warm-up
+        if arith.GRAPHS.graphs() != graphs:
+            raise AssertionError(f"[graph] {label}: the first call captured")
+        captured = []
+        capture_ms = wall_ms(lambda: captured.append(ct(call())))
+        if arith.GRAPHS.graphs() != graphs + 1:
+            raise AssertionError(f"[graph] {label}: the second call captured no graph")
+        pool_bytes = arith.GRAPHS.pool_bytes() - pool
+        cmux.reset_launches()
+        out = call2()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        entry = next(reversed(arith.GRAPHS.entries.values()))    # call2's key, just used
+    replayed = ct(out)
+    expect_byte_equal(f"[graph] {label}, captured", captured[0], eager)
+    expect_byte_equal(f"[graph] {label}, replayed on other operands", replayed, eager2)
+    if counts != eager_counts:
+        raise AssertionError(f"[graph] {label}: replay counts {counts} != eager {eager_counts}")
+    if digest is not None and _hash(captured[0]) != digest:
+        raise AssertionError(f"[graph] {label}: SHA-256 {_hash(captured[0])} != {digest}")
+    got = check(out)
+    nodes = check_graph_nodes(label, entry)
+    eager_ms, replay_ms = in_turns(call2, GRAPH_REPS)
+    log(f"[graph] {label} PARAMS_110: captured == eager and a replay on other operands == eager "
+        f"(a, b, cv byte-equal; decrypts to {got}), launches == eager's "
+        f"{ {k: v for k, v in counts['launches'].items() if v} }; capture (the second call) "
+        f"{capture_ms:.3f} ms, replay {replay_ms:.3f} ms, eager {eager_ms:.3f} ms (medians of "
+        f"{GRAPH_REPS} in turns); graphs held {arith.GRAPHS.graphs()}, this one's pool "
+        f"{pool_bytes} bytes, all pools {arith.GRAPHS.pool_bytes()} bytes; {nodes} ({smi})")
+    return counts
+
+
+def phase_graph(sk, x, y, smi: str) -> dict:
+    """Whole circuits as CUDA graphs (arith.circuit): the eight 16-bit
+    CipherInt ops at one number and vector_add / vector_mul / vector_sum at
+    length 32, PARAMS_110, the reference's keys, each through graph_run, add16
+    against the golden SHA-256; add16 again with the key switch's tensor-core
+    arm forced (KS_GATHER_MAX = 0), which must be a graph of its own; the
+    capture rule's sweep; add16's idle share under replay. The phase's
+    graphs capture on a key's second call and keep their CUDA graphs for
+    check_graph_nodes; the default graphs come back after it. Returns the
+    counts of the replays on other operands."""
+    from tfhe_tpu_torch import arith
+
+    class Kept(arith.CudaGraph):
+        def __init__(self, device):
+            super().__init__(device)
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+    default, arith.GRAPHS = arith.GRAPHS, arith.CircuitGraphs(Kept, eager_calls=1)
+    try:
+        return graph_ops(sk, x, y, smi)
+    finally:
+        arith.GRAPHS = default
+
+
+def graph_ops(sk, x, y, smi: str) -> dict:
+    """The ops of phase_graph, and its counts."""
+    from tfhe_tpu_torch import arith, config, linalg
+    from tfhe_tpu_torch.cipher import CipherInt
+    from tfhe_tpu_torch.ops import cmux
+    cloud, nb = sk.cloud, x.nbits
+    with open(GOLDEN_ADD16) as f:
+        golden = json.load(f)
+    a, a2, b2 = np.array(golden["a"]), np.array(REPLAY_A), np.array(REPLAY_B)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(61)
+    xpos, x2, y2, xpos2 = (CipherInt.encrypt(sk, v, nb, gen, "cuda")
+                           for v in (np.abs(a), a2, b2, np.abs(a2)))
+    total = {"launches": {}, "samples": {}}
+    for (name, call, truth), (_, call2, _) in zip(circuit_ops(x, y, xpos, y),
+                                                  circuit_ops(x2, y2, xpos2, y2)):
+        counts = graph_run(
+            f"{name} {nb}-bit", call, call2,
+            lambda out, t=truth, n=name: int(expect_plaintext(sk, f"[graph] {n}", out, t, a2, b2, nb)),
+            smi, golden["sha256"] if name == "+" else None)
+        add_counts(total, counts)
+
+    rng = np.random.RandomState(61)
+    va, vb, wa, wb = (rng.randint(0, 1 << NBITS, size=VECTOR).astype(np.int64) for _ in range(4))
+    cva, cvb, cwa, cwb = (arith.encrypt_int(sk, v, NBITS, gen, "cuda") for v in (va, vb, wa, wb))
+
+    def check_int(truth):
+        def check(out):
+            got = arith.decrypt_int(sk, out)
+            if not np.array_equal(got, signed(truth, NBITS)):
+                raise AssertionError(f"[graph] decrypts to {got}, want {signed(truth, NBITS)}")
+            return f"numpy's answer mod 2^{NBITS}"
+        return check
+
+    for name, call, call2, truth in (
+            ("vector_add", lambda: linalg.vector_add(cva, cvb, cloud),
+             lambda: linalg.vector_add(cwa, cwb, cloud), wa + wb),
+            ("vector_mul", lambda: linalg.vector_mul(cva, cvb, cloud),
+             lambda: linalg.vector_mul(cwa, cwb, cloud), wa * wb),
+            ("vector_sum", lambda: linalg.vector_sum(cva, cloud),
+             lambda: linalg.vector_sum(cwa, cloud), wa.sum())):
+        add_counts(total, graph_run(f"{name} length {VECTOR}", call, call2, check_int(truth), smi))
+
+    planned = cmux.KS_GATHER_MAX
+    held = arith.GRAPHS.graphs()
+    cmux.KS_GATHER_MAX = 0
+    try:
+        graph_run(f"+ {nb}-bit, key switch's tensor-core arm forced", lambda: x + y,
+                  lambda: x2 + y2, lambda out: int(arith.decrypt_int(sk, out.ct)), smi,
+                  golden["sha256"])
+    finally:
+        cmux.KS_GATHER_MAX = planned
+    if arith.GRAPHS.graphs() != held + 1:
+        raise AssertionError("[graph] the forced arm did not capture a graph of its own")
+    log(f"[graph] the tensor-core arm forced (KS_GATHER_MAX = 0) is a key and a graph of its own: "
+        f"graphs held {held} -> {arith.GRAPHS.graphs()}, the planned arm's graph replays on")
+
+    phase_graph_rule(sk, smi)
+    phase_profile(f"add16 PARAMS_110, one number, replayed", lambda: x2 + y2, smi, tag="graph")
+    return total
+
+
+def phase_graph_rule(sk, smi: str) -> None:
+    """The measurement behind the capture rule (arith.CAPTURE_MAX_BATCH): a
+    16-bit add of L numbers (32 L input samples) eager and replayed in turns,
+    with the rule lifted, and the pool each graph keeps."""
+    from tfhe_tpu_torch import arith, config
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(62)
+    rng = np.random.RandomState(62)
+    rule = arith.CAPTURE_MAX_BATCH
+    arith.CAPTURE_MAX_BATCH = 1 << 30
+    try:
+        for L in GRAPH_SWEEP:
+            p, q = (arith.encrypt_int(sk, rng.randint(-(1 << 15), 1 << 15, size=L), NBITS, gen,
+                                      "cuda") for _ in range(2))
+            pool, held = arith.GRAPHS.pool_bytes(), arith.GRAPHS.graphs()
+            with config.overrides(TFHE_TPU_CIRCUIT_JIT="auto"):
+                arith.add(p, q, sk.cloud)
+                arith.add(p, q, sk.cloud)
+            mine = "a new graph" if arith.GRAPHS.graphs() > held else "the graph of vector_add"
+            eager_ms, replay_ms = in_turns(lambda: arith.add(p, q, sk.cloud), 3)
+            log(f"[graph] capture rule: add {NBITS}-bit of {L} numbers ({2 * NBITS * L} input "
+                f"samples; {'captured' if 2 * NBITS * L <= rule else 'eager'} under the rule of "
+                f"{rule}): eager {eager_ms:.3f} ms, replay {replay_ms:.3f} ms "
+                f"({100 * (1 - replay_ms / eager_ms):.1f} % less), {mine}, its pool "
+                f"{arith.GRAPHS.pool_bytes() - pool} bytes ({smi})")
+    finally:
+        arith.CAPTURE_MAX_BATCH = rule
+
+
+# The port's kernels by the name of their function, and the counter each
+# launch of theirs adds one to (the key switch: one node of its arm and one
+# of ks_finish_kernel per launch)
+NODE_COUNTERS = {
+    "blind_rotate_small_kernel": ("blind_rotate_fused_packed",),
+    "blind_rotate_kernel": ("blind_rotate_fused", "blind_rotate_ks_fused", "blind_rotate_step"),
+    "cmux_delta_kernel": ("cmux_delta",),
+    "ks_gather_kernel": ("keyswitch",),
+    "ks_mma_kernel": ("keyswitch",),
+    "ks_finish_kernel": ("keyswitch",),
+}
+
+
+def mangled_words(name: str) -> list:
+    """The names that open a C++ symbol's mangled name, outermost first
+    (_ZN39_GLOBAL__N__..._cmux_cu_...19blind_rotate_kernelILi10E... gives the
+    anonymous namespace and blind_rotate_kernel); a name that is not mangled,
+    as it is."""
+    if not name.startswith("_Z"):
+        return [name]
+    i, words = 2, []
+    while i < len(name) and name[i] in "NL":         # nested; internal linkage
+        i += 1
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while j < len(name) and name[j].isdigit():
+            j += 1
+        words.append(name[j:j + int(name[i:j])])
+        i = j + int(name[i:j])
+    return words
+
+
+def graph_kernel_nodes(graph) -> tuple:
+    """The kernel nodes of a CUDA graph kept after its capture
+    (CUDAGraph(keep_graph=True)), read through libcuda (cuGraphGetNodes,
+    cuGraphKernelNodeGetParams, cuFuncGetName / cuKernelGetName,
+    cuGraphKernelNodeGetAttribute): their count by the port's kernel
+    (NODE_COUNTERS; every other kernel under "other"), and the count of
+    cluster kernel nodes by the kernel and the cluster's shape."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    P = ctypes.c_void_p
+
+    class Params(ctypes.Structure):       # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", P), ("dims", ctypes.c_uint * 7), ("args", P), ("extra", P),
+                    ("kern", P), ("ctx", P)]
+
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2", None) or \
+        cu.cuGraphKernelNodeGetParams
+    get_params.argtypes = [P, ctypes.POINTER(Params)]
+    cu.cuGraphGetNodes.argtypes = [P, P, ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [P, ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphKernelNodeGetAttribute.argtypes = [P, ctypes.c_int, P]
+    cu.cuFuncGetName.argtypes = cu.cuKernelGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), P]
+
+    def check(err: int, what: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"[graph] {what} returned CUresult {err}")
+
+    g = P(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (P * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    by_kernel, clusters = {}, {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                          # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = Params(), ctypes.c_char_p()
+        check(get_params(node, ctypes.byref(params)), "cuGraphKernelNodeGetParams")
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), params.func), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), params.kern), "cuKernelGetName")
+        kernel = next((w for w in mangled_words(name.value.decode()) if w in NODE_COUNTERS),
+                      "other")
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        value = (ctypes.c_uint * 16)()               # CUlaunchAttributeValue, 64 bytes
+        check(cu.cuGraphKernelNodeGetAttribute(node, 4, value),   # CLUSTER_DIMENSION
+              "cuGraphKernelNodeGetAttribute")
+        dims = tuple(value[:3])
+        if dims[0] * dims[1] * dims[2] > 1:
+            clusters[(kernel, dims)] = clusters.get((kernel, dims), 0) + 1
+    return by_kernel, clusters
+
+
+def check_graph_nodes(label: str, entry) -> str:
+    """The kernel nodes of a captured circuit's graph against the launches
+    its capture counted, which every replay adds to cmux.LAUNCHES: for each
+    of the port's kernels, as many nodes as launches of its counters
+    (NODE_COUNTERS); as many ks_finish_kernel nodes as key-switch arm nodes;
+    every cluster kernel node K5's. Returns what it read."""
+    by_kernel, clusters = graph_kernel_nodes(entry.graph.graph)
+    want = {}
+    for kernel, counters in NODE_COUNTERS.items():
+        want.setdefault(counters, 0)
+        want[counters] += by_kernel.get(kernel, 0)
+    launches = {c: sum(entry.launches[k] for k in c) for c in want}
+    launches[("keyswitch",)] *= 2                    # its arm and ks_finish_kernel
+    if want != launches or by_kernel.get("ks_finish_kernel", 0) != entry.launches["keyswitch"]:
+        raise AssertionError(f"[graph] {label}: kernel nodes {by_kernel} disagree with the "
+                             f"launches counted at its capture {entry.launches}")
+    k5 = sum(v for (kernel, _), v in clusters.items() if kernel == "blind_rotate_small_kernel")
+    if k5 != sum(clusters.values()) or k5 != by_kernel.get("blind_rotate_small_kernel", 0):
+        raise AssertionError(f"[graph] {label}: cluster kernel nodes {clusters}, K5's kernel "
+                             f"nodes {by_kernel.get('blind_rotate_small_kernel', 0)}")
+    return (f"its kernel nodes read through libcuda {by_kernel} == the launches counted at "
+            f"its capture, the cluster nodes {clusters}")
+
+
+def log_circuit_calls(phase: str) -> None:
+    """How the phase's decorated circuit calls went through the default
+    graphs (arith.GRAPHS.counts since it was cleared)."""
+    from tfhe_tpu_torch import arith
+    c = arith.GRAPHS.counts
+    keyed = c["first"] + c["eager"] + c["capture"] + c["replay"]
+    log(f"[{phase}] circuit calls through arith.circuit: {keyed + c['over_rule']}, "
+        f"{c['over_rule']} of them over the capture rule (eager); of the {keyed} under it, "
+        f"{keyed - c['first']} repeat a key ({100 * (keyed - c['first']) / max(keyed, 1):.1f} %): "
+        f"{c['eager']} more eager (CAPTURE_AFTER = {arith.CAPTURE_AFTER}), {c['capture']} "
+        f"captures, {c['replay']} replays; graphs held {arith.GRAPHS.graphs()}")
+
+
 def signed(v, nbits: int) -> np.ndarray:
     """Integers taken mod 2^nbits as signed nbits-bit numbers."""
     v = np.asarray(v, np.int64) & ((1 << nbits) - 1)
@@ -1686,10 +2034,10 @@ def phase_parallel(sk, x, y, bits_x, bits_y, smi: str) -> dict:
     return total
 
 
-def phase_profile(label: str, fn, smi: str) -> None:
+def phase_profile(label: str, fn, smi: str, tag: str = "profile") -> None:
     """One fn() under torch.profiler: device time by kernel, and the share of
     the device's span (first kernel start to last kernel end) in which no
-    kernel ran."""
+    kernel ran; lines tagged [tag]."""
     from tfhe_tpu_torch.utils.profiling import device_trace
     fn()                                        # warm
     torch.cuda.synchronize()
@@ -1707,7 +2055,7 @@ def phase_profile(label: str, fn, smi: str) -> None:
             spans.append((ev.time_range.start, ev.time_range.end))
             by_name[ev.name] = by_name.get(ev.name, 0.0) + (ev.time_range.end - ev.time_range.start)
     if not spans:
-        log(f"[profile] {label}: torch.profiler recorded no device event: idle share not measured")
+        log(f"[{tag}] {label}: torch.profiler recorded no device event: idle share not measured")
         return
     spans.sort()
     busy, edge = 0.0, spans[0][0]
@@ -1716,13 +2064,13 @@ def phase_profile(label: str, fn, smi: str) -> None:
             busy += end - max(start, edge)
             edge = end
     span = spans[-1][1] - spans[0][0]
-    log(f"[profile] {label}: wall {wall_ms:.3f} ms under the profiler, device "
+    log(f"[{tag}] {label}: wall {wall_ms:.3f} ms under the profiler, device "
         f"span {span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f} % "
         f"({len(spans)} device events, a trace of {trace_bytes} bytes; {smi})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for name, us in top[:6]:
-        log(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
-    log(f"[profile]   {sum(us for _, us in top[6:]) / 1e3:9.3f} ms  every other kernel "
+        log(f"[{tag}]   {us / 1e3:9.3f} ms  {name[:90]}")
+    log(f"[{tag}]   {sum(us for _, us in top[6:]) / 1e3:9.3f} ms  every other kernel "
         f"({len(top) - 6} names)")
 
 
@@ -1732,7 +2080,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import tfhe_tpu_torch as tt
-    from tfhe_tpu_torch import ref_keygen
+    from tfhe_tpu_torch import config, ref_keygen
     from tfhe_tpu_torch.core.lwe import LweCiphertext
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1773,28 +2121,39 @@ def main() -> int:
     phase_noise(sk, dev["smi"])
     log_peak("noise", dev["smi"])
     and_rate = phase_timing(sk, x, y, bits_x & bits_y, dev["smi"])["kernel"]["bootstraps_per_s"]
-    circuit_counts, cx, cy = phase_circuits(sk, dev["smi"])
-    phase_arms(cx, cy, dev["smi"])
-    phase_circuits_plain()
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):      # the eager path, as recorded
+        circuit_counts, cx, cy = phase_circuits(sk, dev["smi"])
+        phase_arms(cx, cy, dev["smi"])
+        phase_circuits_plain()
     log_peak("circuits", dev["smi"])
-    from tfhe_tpu_torch import linalg
+    graph_counts = phase_graph(sk, cx, cy, dev["smi"])
+    log_peak("graph", dev["smi"])
+    from tfhe_tpu_torch import arith, linalg
+    arith.GRAPHS.counts.clear()
     linalg_counts, (cma, cmb) = phase_linalg(sk, and_rate, dev["smi"])
+    log_circuit_calls("linalg")
     log_peak("linalg", dev["smi"])
+    arith.GRAPHS.counts.clear()
     linreg_counts = phase_linreg(sk, and_rate, dev["smi"])
+    log_circuit_calls("linreg")
     log_peak("linreg", dev["smi"])
+    arith.GRAPHS.counts.clear()
     apps_counts = phase_apps(sk, dev["smi"])
+    log_circuit_calls("apps")
     phase_linalg_plain()
     phase_linalg_golden(sk)
     log_peak("apps", dev["smi"])
     parallel_counts = phase_parallel(sk, x, y, bits_x, bits_y, dev["smi"])
     log_peak("parallel", dev["smi"])
-    phase_profile("add16 PARAMS_110, one number", lambda: cx + cy, dev["smi"])
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+        phase_profile("add16 PARAMS_110, one number", lambda: cx + cy, dev["smi"])
     phase_profile(f"matmul {MATRIX}x{MATRIX} {NBITS}-bit PARAMS_110",
                   lambda: linalg.matmul(cma, cmb, sk.cloud), dev["smi"])
     log_peak("profile", dev["smi"])
 
     paths = {"and": launches["and"], "large_batch": launches["large_batch"],
-             "circuits": circuit_counts, "linalg": linalg_counts, "linreg": linreg_counts,
+             "circuits": circuit_counts, "graph": graph_counts, "linalg": linalg_counts,
+             "linreg": linreg_counts,
              "apps": apps_counts, "parallel": parallel_counts}
 
     def counted(counter: str) -> dict:

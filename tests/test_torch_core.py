@@ -90,6 +90,17 @@ def test_lwe_algebra_matches():
     assert x.batch_shape == jx.batch_shape and x.n == jx.n == 16
 
 
+@pytest.mark.parametrize("p", [0, 1, 3, -7, 1 << 20])
+def test_lwe_add_mul_sub_mul_match(p):
+    """x + p*y and x - p*y (ref lweAddMulTo, lweSubMulTo) with int32 wrap:
+    a and b exact, cv to rtol 1e-6."""
+    rng = np.random.RandomState(5)
+    x, y = _random_ct(rng, (3, 4), 16), _random_ct(rng, (3, 4), 16)
+    jx, jy = _jct(x), _jct(y)
+    _assert_ct_equal(lwe.lwe_add_mul(x, p, y), jlwe.lwe_add_mul(jx, p, jy))
+    _assert_ct_equal(lwe.lwe_sub_mul(x, p, y), jlwe.lwe_sub_mul(jx, p, jy))
+
+
 def test_lwe_phase_matches(toy_keys):
     rng = np.random.RandomState(5)
     x = _random_ct(rng, (7,), toy_keys.params.n)

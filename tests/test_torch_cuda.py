@@ -1,5 +1,6 @@
 """The CUDA kernels of tfhe_tpu_torch against their plain-torch versions, on
-the card. Every test here needs a CUDA device and skips without one.
+the card, and whole circuits captured as CUDA graphs (arith.circuit) against
+their eager runs. Every test here needs a CUDA device and skips without one.
 
 This file imports neither jax nor tfhe_tpu, so it also runs where jax is not
 installed; tests/conftest.py imports jax, so run it there without it:
@@ -8,6 +9,7 @@ installed; tests/conftest.py imports jax, so run it there without it:
 """
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 import tfhe_tpu_torch as tt
 from tfhe_tpu_torch import arith, config, gates, ntt
 from tfhe_tpu_torch.core import bootstrap as bs
+from tfhe_tpu_torch.core import lwe
 from tfhe_tpu_torch.core.keys import bk_rows_layout
 from tfhe_tpu_torch.ops import _build, cmux, cmux_packed
 
@@ -275,3 +278,142 @@ def test_wrapper_rejects_bad_input_on_card(cuda):
         cmux.blind_rotate_fused(acc_t, bara, bk.view(torch.int32), sh, params)
     with pytest.raises(ValueError):                    # mixed devices
         cmux.blind_rotate_fused(acc_t, bara.cpu(), bk, sh, params)
+
+
+# ------------------------------------------------------------------ circuit graphs
+
+@pytest.fixture(scope="module")
+def small_sk():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return tt.keygen(tt.PARAMS_SMALL, seed=11, device="cuda")
+
+
+# name -> (call, operands: "ab" signed, "pq" positive, plaintext answer)
+GRAPH_CIRCUITS = {
+    "add": (lambda x, y, c: arith.add(x, y, c), "ab", lambda a, b: a + b),
+    "sub": (lambda x, y, c: arith.sub(x, y, c), "ab", lambda a, b: a - b),
+    "mul": (lambda x, y, c: arith.mul(x, y, c), "ab", lambda a, b: a * b),
+    "mul_plain": (lambda x, y, c: arith.mul_plain(x, 5, c), "ab", lambda a, b: 5 * a),
+    "mul_full": (lambda x, y, c: arith.mul_full(x, y, c, 6), "pq", lambda a, b: a * b),
+    "gt": (lambda x, y, c: arith.gt(x, y, c), "ab", lambda a, b: (a > b).astype(np.int64)),
+    "eq": (lambda x, y, c: arith.eq(x, y, c), "ab", lambda a, b: (a == b).astype(np.int64)),
+    "absolute": (lambda x, y, c: arith.absolute(x, c), "ab", lambda a, b: np.abs(a)),
+    "minimum": (lambda x, y, c: arith.minimum(x, y, c), "pq", np.minimum),
+    "div": (lambda x, y, c: arith.div(x, y, c), "ab", lambda a, b: np.trunc(a / b).astype(np.int64)),
+}
+
+
+def _operands(sk, kind: str, seed: int):
+    """Two 4-bit operand batches of 3 numbers (signed, or positive) and their values."""
+    rng = np.random.RandomState(seed)
+    a, b = (rng.randint(-7, 8, 3) for _ in range(2))
+    b = np.where(b == 0, 3, b)
+    if kind == "pq":
+        a, b = np.abs(a), np.abs(b)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return (a, b), tuple(arith.encrypt_int(sk, v, 4, gen, "cuda") for v in (a, b))
+
+
+def _decrypt(sk, ct, nbits: int):
+    """An integer result mod 2^nbits, or a comparison's bits."""
+    if ct.batch_shape[-1:] == (nbits,):
+        return arith.decrypt_int(sk, ct, signed=False)
+    return tt.decrypt_bits(sk, ct)
+
+
+def _same(got, want) -> bool:
+    return all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("a", "b", "cv"))
+
+
+@pytest.mark.parametrize("name", list(GRAPH_CIRCUITS))
+def test_captured_circuit_equals_eager(small_sk, name, monkeypatch):
+    """At PARAMS_SMALL: the captured circuit equals the eager one (a, b and
+    cv exact), replays on other operands give their own right results, two
+    results share no tensor, and the counters after a replay equal eager's."""
+    sk = small_sk
+    monkeypatch.setattr(arith, "GRAPHS", arith.CircuitGraphs(eager_calls=1))
+    call, kind, truth = GRAPH_CIRCUITS[name]
+    (va, vb), xs = _operands(sk, kind, 1)
+    (wa, wb), ys = _operands(sk, kind, 2)
+    width = 6 if name == "mul_full" else 4
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+        eager_x = call(*xs, sk.cloud)
+        cmux.reset_launches()
+        eager_y = call(*ys, sk.cloud)
+        torch.cuda.synchronize()
+        eager_counts = (dict(cmux.LAUNCHES), dict(cmux.SAMPLES))
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="1"):
+        call(*xs, sk.cloud)                                    # the warm-up
+        assert arith.GRAPHS.graphs() == 0
+        captured = call(*xs, sk.cloud)
+        assert arith.GRAPHS.graphs() == 1
+        cmux.reset_launches()
+        replayed = call(*ys, sk.cloud)
+        torch.cuda.synchronize()
+        assert (dict(cmux.LAUNCHES), dict(cmux.SAMPLES)) == eager_counts
+        again = call(*xs, sk.cloud)
+    torch.cuda.synchronize()
+    assert _same(captured, eager_x) and _same(again, eager_x) and _same(replayed, eager_y)
+    assert len({t.a.data_ptr() for t in (captured, replayed, again)}) == 3
+    np.testing.assert_array_equal(_decrypt(sk, replayed, width),
+                                  truth(wa, wb) & ((1 << width) - 1))
+
+
+def test_evicted_plan_tensor_cannot_corrupt_a_graph(small_sk, monkeypatch):
+    """A plan cache just large enough for one multiply: once the graph is
+    captured, other plans evict all of the multiply's and fresh tensors take
+    their memory; the graph's replays still equal the eager multiply, since it
+    holds the plans it read (core/lwe.keeping)."""
+    sk = small_sk
+    monkeypatch.setattr(arith, "GRAPHS", arith.CircuitGraphs(eager_calls=1))
+    plain = lwe._plan_tensor.__wrapped__
+    counting = functools.lru_cache(maxsize=None)(plain)
+    monkeypatch.setattr(lwe, "_plan_tensor", counting)
+    _, xs = _operands(sk, "ab", 3)
+    _, ys = _operands(sk, "ab", 4)
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="1"):
+        arith.mul(*xs, sk.cloud)                               # the warm-up
+        plans = counting.cache_info().currsize
+        tiny = functools.lru_cache(maxsize=plans)(plain)
+        monkeypatch.setattr(lwe, "_plan_tensor", tiny)
+        with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+            arith.mul(*xs, sk.cloud)                           # fills the tiny cache
+        arith.mul(*xs, sk.cloud)                               # captures
+        assert arith.GRAPHS.graphs() == 1 and tiny.cache_info().misses == plans
+        for i in range(2 * plans):
+            lwe.plan_tensor(np.arange(i, i + 40, dtype=np.int64), "cuda")
+        assert tiny.cache_info().misses == 3 * plans
+        junk = [torch.full((s,), -1, dtype=torch.int64, device="cuda")
+                for s in range(1, 4096, 7)]
+        replayed = arith.mul(*ys, sk.cloud)
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+        eager = arith.mul(*ys, sk.cloud)
+    torch.cuda.synchronize()
+    assert junk and _same(replayed, eager)
+
+
+def test_plan_evicted_before_the_capture_is_still_captured(small_sk, monkeypatch):
+    """A plan cache of 8 entries, emptied of the multiply's plans between its
+    warm-up and its capture: the capture reads the warm-up's plans
+    (core/lwe.keeping), so it copies nothing from the host, and the captured
+    and replayed results equal the eager multiply's."""
+    sk = small_sk
+    monkeypatch.setattr(arith, "GRAPHS", arith.CircuitGraphs(eager_calls=1))
+    tiny = functools.lru_cache(maxsize=8)(lwe._plan_tensor.__wrapped__)
+    monkeypatch.setattr(lwe, "_plan_tensor", tiny)
+    _, xs = _operands(sk, "ab", 5)
+    _, ys = _operands(sk, "ab", 6)
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="1"):
+        arith.mul(*xs, sk.cloud)                               # the warm-up
+        for i in range(16):
+            lwe.plan_tensor(np.arange(i, i + 40, dtype=np.int64), "cuda")
+        misses = tiny.cache_info().misses
+        captured = arith.mul(*xs, sk.cloud)
+        assert arith.GRAPHS.graphs() == 1 and tiny.cache_info().misses == misses
+        replayed = arith.mul(*ys, sk.cloud)
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+        eager_x, eager_y = arith.mul(*xs, sk.cloud), arith.mul(*ys, sk.cloud)
+    torch.cuda.synchronize()
+    assert _same(captured, eager_x) and _same(replayed, eager_y)

@@ -20,15 +20,26 @@ An n-bit integer is an LweCiphertext batch with trailing axis nbits (bit i =
 2^i). All circuits accept arbitrary leading batch shapes. At one number per
 batch every stage is a small bootstrap, which ``core.bootstrap`` sends
 through the small-batch blind rotate (K5). The index plans are static numpy
-arrays; ``lwe_take`` puts each on the device once.
+arrays; ``lwe_take`` puts each on the device once. On the card each
+decorated circuit is captured whole as a CUDA graph and replayed
+(``circuit``).
 """
 from __future__ import annotations
+
+import collections
+import functools
+import threading
+import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from . import gates
-from .core.lwe import LweCiphertext, lwe_concat, lwe_stack, lwe_take
+from .config import circuit_jit_enabled, policy_fingerprint
+from .core.keys import CloudKey
+from .core.lwe import LweCiphertext, keeping, lwe_concat, lwe_stack, lwe_take
+from .ops import cmux
 from .numeric import wrap_i32
 from .params import TfheParams
 
@@ -69,14 +80,290 @@ def zero_like_bits(x: LweCiphertext, batch_shape) -> LweCiphertext:
     return gates.CONSTANT(0, x.n, batch_shape, device=x.device)
 
 
-# ------------------------------------------------------- whole-circuit form
+# ------------------------------------------------------- whole-circuit graphs
 
-def circuit(fn):
-    """Marks a whole integer circuit, as ``tfhe_tpu.arith.circuit`` does.
-    There it traces the circuit into one XLA program; here the circuit runs
-    eagerly, and the decorator returns the function unchanged. Capturing a
-    whole circuit as a CUDA graph is later work (ROADMAP)."""
-    return fn
+# The capture rule: a call whose ciphertext arguments hold more samples than
+# this, all together, runs eagerly. Measured on an H100 (700 W) at PARAMS_110
+# by chip_smoke.py's [graph] phase (PERF.md): a replay of a 16-bit add saves
+# 2.2-3.0 ms (0.14-0.19 ms a stage) at every batch, the time eager launches
+# leave the card idle (1 number 33.6 -> 31.1 ms; 32 numbers, 1,024 input
+# samples, 43.8 -> 41.5; 128 numbers 107.2 -> 104.3), while the pool a
+# graph keeps grows with the batch: 199 MB for a multiply of 32
+# numbers (1,024 input samples; 333.5 -> 330.6 ms), about the peak of its
+# opening AND batch. Above 1,024 the memory outgrows the saving: an 8x8
+# matmul (2,048 input samples) runs 4.7 s with the card 0.1 % idle.
+CAPTURE_MAX_BATCH = 1024
+# Eager calls of a key before its capture, the first of them the warm-up. A
+# capture costs C more than an eager call (the host's pass through the
+# circuit, the graph's instantiation, then one replay) and each replay saves
+# s; capturing once the eager calls have forgone about C (after C / s of them)
+# never costs more than twice what the best choice in hindsight would, however
+# often the key comes back. Measured on an H100 (700 W) at PARAMS_110 by
+# chip_smoke.py's [graph] phase (PERF.md), C / s is 10-42 for the 16-bit
+# CipherInt ops and the vector ops at 32 (add 22 / 2.1 ms, div 798 / 19 ms),
+# 16-24 for most of them.
+CAPTURE_AFTER = 16
+# Keys remembered at once, graphs and keys not yet captured together; the
+# least recently used goes first, and its graph with it. Under the capture
+# rule a pool holds at most ~200 MB, so the graphs hold at most ~6.4 GB.
+GRAPH_MAX = 32
+
+_INSIDE = threading.local()      # depth of decorated calls on this thread
+
+
+class CudaGraph:
+    """One circuit captured as a ``torch.cuda.CUDAGraph`` on a card, with a
+    memory pool of its own."""
+    device_type = "cuda"
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool_bytes = 0
+
+    def capture(self, run):
+        """Records the launches of run() (none of them runs) and returns its
+        outputs, which every replay writes. ``torch.cuda.graph`` synchronises,
+        empties the allocator's cache and captures on a side stream, which
+        is the current stream every kernel wrapper launches on meanwhile; what
+        the capture allocates stays in the graph's pool (``pool_bytes``)."""
+        with torch.cuda.device(self.device):
+            with torch.cuda.graph(self.graph):
+                before = torch.cuda.memory_reserved()
+                out = run()
+            self.pool_bytes = torch.cuda.memory_reserved() - before
+        return out
+
+    def replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+
+def _weak(obj):
+    """A weak reference to obj where it takes one, else a strong one."""
+    try:
+        return weakref.ref(obj)
+    except TypeError:
+        return lambda: obj
+
+
+def _check_outputs(out) -> None:
+    """A captured circuit returns a ciphertext or a tuple of them."""
+    if not (isinstance(out, LweCiphertext) or (
+            isinstance(out, tuple) and all(isinstance(o, LweCiphertext) for o in out))):
+        raise TypeError(f"a captured circuit returns ciphertexts, not {type(out).__name__}")
+
+
+def _clone(out):
+    """Fresh copies of a circuit's outputs."""
+    if isinstance(out, LweCiphertext):
+        return LweCiphertext(out.a.clone(), out.b.clone(), out.cv.clone())
+    return tuple(_clone(o) for o in out)
+
+
+@dataclass
+class _Entry:
+    """A key's state: called `calls` times eagerly (graph None; its identity
+    arguments held weakly), or captured (the graph, its static inputs and
+    outputs, and the launches each replay makes). `held` maps the cache keys
+    of the plans its eager calls and its capture read to the tensors
+    (``core/lwe.keeping``)."""
+    refs: tuple
+    held: dict
+    calls: int = 0
+    graph: object = None
+    inputs: list = None
+    out: object = None
+    launches: dict = None
+    samples: dict = None
+
+
+class CircuitGraphs:
+    """The captured circuits of ``circuit``, by key, at most `max_graphs`
+    keys (graphs and keys not yet captured together), least recently used out
+    first.
+
+    `graph` makes the graph of one capture on a device (``CudaGraph``; the
+    tests pass a stand-in). A key's first `eager_calls` calls run eagerly. The
+    first is the warm-up that loads the kernels' library, raises their
+    shared-memory limits, reads the card's occupancy and puts the plans on the
+    device, so the capture meets nothing but launches; the eager calls and the
+    capture share one list of plans (``core/lwe.keeping``), which the graph
+    keeps. The next call copies its ciphertexts into the graph's own input
+    tensors, captures, and replays; every later call copies its ciphertexts
+    in, replays and returns copies of the outputs, so two calls never share a
+    result tensor. A capture that fails raises, and the key starts again from
+    a first call. Calls are serialised by a lock; the replays of one graph are
+    ordered on the stream of their calls. `counts` tallies the calls by what
+    they did: first, eager (before the capture), capture, replay, and
+    over_rule (eager, over CAPTURE_MAX_BATCH; counted by ``circuit``)."""
+
+    def __init__(self, graph=CudaGraph, max_graphs: int = GRAPH_MAX,
+                 eager_calls: int = CAPTURE_AFTER):
+        self.graph = graph
+        self.device_type = graph.device_type
+        self.max_graphs = max_graphs
+        self.eager_calls = eager_calls
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.counts = collections.Counter()
+        self.lock = threading.Lock()
+
+    def graphs(self) -> int:
+        """How many graphs are held."""
+        return sum(e.graph is not None for e in self.entries.values())
+
+    def pool_bytes(self) -> int:
+        """The device memory the held graphs' pools reserve."""
+        return sum(e.graph.pool_bytes for e in self.entries.values() if e.graph is not None)
+
+    def call(self, f, args: tuple, key: tuple, by_id: list, device: torch.device):
+        """f(*args) through the graph of `key`; `by_id` are the arguments the
+        key names by identity (the cloud key), which a graph holds."""
+        with self.lock:
+            entry = self.entries.get(key)
+            if entry is not None and entry.graph is None and not all(
+                    r() is a for r, a in zip(entry.refs, by_id)):
+                entry = None              # an object of an eager call died; its id was reused
+            if entry is None:
+                entry = _Entry(tuple(_weak(a) for a in by_id), {})
+                self._remember(key, entry)
+                self.counts["first"] += 1
+            else:
+                self.entries.move_to_end(key)
+            if entry.graph is None and entry.calls < self.eager_calls:
+                entry.calls += 1
+                self.counts["eager"] += entry.calls > 1
+                with keeping(entry.held):
+                    return f(*args)
+            if entry.graph is None:
+                entry = self._capture(f, args, key, entry, tuple(by_id), device)
+                self.counts["capture"] += 1
+            else:
+                self.counts["replay"] += 1
+            return self._replay(entry, args)
+
+    def _remember(self, key: tuple, entry: _Entry) -> None:
+        self.entries[key] = entry
+        while len(self.entries) > self.max_graphs:
+            self.entries.popitem(last=False)
+
+    def _capture(self, f, args, key, warm: _Entry, refs, device) -> _Entry:
+        inputs = [LweCiphertext(*(t.clone(memory_format=torch.contiguous_format)
+                                  for t in (a.a, a.b, a.cv)))
+                  if isinstance(a, LweCiphertext) else None for a in args]
+        static = [s if s is not None else a for s, a in zip(inputs, args)]
+        graph = self.graph(device)
+        launches, samples = dict(cmux.LAUNCHES), dict(cmux.SAMPLES)
+        try:
+            with keeping(warm.held):
+                out = graph.capture(lambda: f(*static))
+        except BaseException:
+            del self.entries[key]             # the next call is a first call: eager, a warm-up
+            raise
+        finally:
+            # the capture ran nothing: what the wrappers counted, each replay launches
+            d_launches = {k: cmux.LAUNCHES[k] - v for k, v in launches.items()}
+            d_samples = {k: cmux.SAMPLES[k] - v for k, v in samples.items()}
+            cmux.LAUNCHES.update(launches)
+            cmux.SAMPLES.update(samples)
+        _check_outputs(out)
+        entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, d_launches, d_samples)
+        self._remember(key, entry)
+        return entry
+
+    def _replay(self, entry: _Entry, args):
+        for s, a in zip(entry.inputs, args):
+            if s is not None:
+                s.a.copy_(a.a)
+                s.b.copy_(a.b)
+                s.cv.copy_(a.cv)
+        entry.graph.replay()
+        for k, v in entry.launches.items():
+            cmux.LAUNCHES[k] += v
+            cmux.SAMPLES[k] += entry.samples[k]
+        return _clone(entry.out)
+
+
+# The graphs of every decorated circuit in this process.
+GRAPHS = CircuitGraphs()
+
+
+def circuit_key(f, args: tuple, static_argnums, device: torch.device):
+    """The key of a call of circuit f, and the arguments it names by identity:
+    f; the policy fingerprint (``config.policy_fingerprint``, with the batch
+    cap of the cloud key on `device`); the device, shape and dtype of every
+    tensor of each ciphertext argument; the value of each argument at
+    `static_argnums`; every other argument (the cloud key) by identity."""
+    parts, by_id, cloud = [], [], None
+    for i, a in enumerate(args):
+        if isinstance(a, LweCiphertext):
+            parts.append(tuple((str(t.device), tuple(t.shape), t.dtype) for t in (a.a, a.b, a.cv)))
+        elif i in static_argnums:
+            parts.append(("static", a))
+        elif isinstance(a, (bool, int, float, np.number)):
+            raise TypeError(f"{f.__qualname__}: argument {i} is the number {a!r}; a captured "
+                            f"circuit takes numbers only at its static_argnums")
+        else:
+            parts.append(("id", id(a)))
+            by_id.append(a)
+            if isinstance(a, CloudKey):
+                cloud = a
+    return (f, policy_fingerprint(device, cloud), tuple(parts)), by_id
+
+
+def _graph_device(args: tuple):
+    """The device a call is captured on, or None when it runs eagerly: no
+    ciphertext argument, tensors the graphs cannot hold (CPU tensors: a CUDA
+    graph has no CPU meaning), the flag off (``config.circuit_jit_enabled``),
+    or more than CAPTURE_MAX_BATCH samples in its ciphertexts (counted in
+    ``GRAPHS.counts["over_rule"]``)."""
+    cts = [a for a in args if isinstance(a, LweCiphertext)]
+    if not cts:
+        return None
+    device = cts[0].device
+    if device.type != GRAPHS.device_type or not circuit_jit_enabled(device):
+        return None
+    if sum(c.b.numel() for c in cts) > CAPTURE_MAX_BATCH:
+        GRAPHS.counts["over_rule"] += 1
+        return None
+    return device
+
+
+def circuit(fn=None, *, static_argnums=()):
+    """A whole integer circuit as one CUDA graph, as ``tfhe_tpu.arith.circuit``
+    traces one into one XLA program: every gate batch, kernel launch and
+    affine step between them is captured once per key (``circuit_key``) and
+    replayed on every later call (``CircuitGraphs``), so a serial circuit's
+    stages no longer wait for the host to enqueue some 70 small launches each.
+
+    Eager instead, as ``tfhe_tpu`` runs eagerly: calls with keyword
+    arguments; calls made inside another decorated call (its eager runs or
+    its capture), which the outer call's graph takes in, as a nested
+    ``jax.jit`` is inlined; CPU tensors; TFHE_TPU_CIRCUIT_JIT=0; a key's first
+    CAPTURE_AFTER calls, which repay the capture's cost before it is paid;
+    calls over the capture rule (CAPTURE_MAX_BATCH). None of these changes a
+    bit of the result. `static_argnums` name the positional arguments that are
+    Python numbers, keyed by value (``mul_plain``'s constant, ``mul_full``'s
+    width)."""
+    static = frozenset(static_argnums)
+
+    def deco(f):
+        @functools.wraps(f)
+        def wrapper(*args, **kwargs):
+            if getattr(_INSIDE, "depth", 0):
+                return f(*args, **kwargs)
+            _INSIDE.depth = 1
+            try:
+                device = None if kwargs else _graph_device(args)
+                if device is None:
+                    return f(*args, **kwargs)
+                key, by_id = circuit_key(f, args, static, device)
+                return GRAPHS.call(f, args, key, by_id, device)
+            finally:
+                _INSIDE.depth = 0
+        return wrapper
+
+    return deco(fn) if fn is not None else deco
 
 
 # --------------------------------------------------------------- adders
@@ -627,7 +914,7 @@ def _tree_sum_rows(rows: LweCiphertext, add_fn, cloud) -> LweCiphertext:
     return rows[..., 0, :]
 
 
-@circuit
+@circuit(static_argnums=(1,))
 def mul_plain(a: LweCiphertext, value: int, cloud) -> LweCiphertext:
     """a * public integer constant, mod 2^nbits: the constant's set bits
     contribute copies of a's bits straight into the carry-save reduction, with
@@ -660,7 +947,7 @@ def mul_mux(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     return _wallace_sum_bits(ppm, cols, nbits, cloud)
 
 
-@circuit
+@circuit(static_argnums=(3,))
 def mul_full(a: LweCiphertext, b: LweCiphertext, cloud, out_bits: int) -> LweCiphertext:
     """Shift-and-add multiply with an explicit output width (zero-extends
     the inputs)."""

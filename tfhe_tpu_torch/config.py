@@ -14,10 +14,15 @@ over the environment:
   instead of the full-adder Dadda tree (default the tree).
 - ``TFHE_TPU_NOISE_MODEL=average|measured|tracked``: the noise accounting
   the compressor planner certifies against (default "average").
+- ``TFHE_TPU_CIRCUIT_JIT=0/1``: a decorated integer circuit
+  (``arith.circuit``) is captured once as a CUDA graph and replayed (default
+  on for CUDA tensors); CPU tensors always run eagerly.
 - ``REF_DIR``: the reference checkout that ``ref_oracle`` compiles (default
   ``/root/reference/gpuParallel``, as ``native/Makefile``).
 
-The circuit flags change the bootstraps a circuit runs, never its result.
+The circuit flags change the bootstraps a circuit runs, never its result;
+``policy_fingerprint`` names everything that routes a call, so that a graph
+captured under one route is never replayed under another.
 """
 from __future__ import annotations
 
@@ -79,6 +84,37 @@ def noise_model() -> str:
     if v not in ("average", "measured", "tracked"):
         raise ValueError(f"TFHE_TPU_NOISE_MODEL={v!r}: want average|measured|tracked")
     return v
+
+
+def circuit_jit_enabled(device: torch.device) -> bool:
+    """Whole-circuit graphs (``arith.circuit``) for a circuit whose
+    ciphertexts lie on `device`: TFHE_TPU_CIRCUIT_JIT=0/1 forces, auto is on
+    for CUDA tensors. A CUDA graph holds only CUDA work, so ``arith.circuit``
+    runs CPU tensors eagerly whatever this says (the caller asked for the CPU)."""
+    v = flag("TFHE_TPU_CIRCUIT_JIT")
+    if v in ("0", "1"):
+        return v == "1"
+    return torch.device(device).type == "cuda"
+
+
+def policy_fingerprint(device=None, cloud=None) -> tuple:
+    """Everything a circuit reads at call time that picks its kernels and
+    batches: the circuit flags, the routing values of ``ops.cmux`` (the key
+    switch's arms, the blind rotate's forms) and ``core.bootstrap`` (the
+    small-batch route and its wave times) and, with `device` and `cloud`, the
+    batch cap of a bootstrap call there. Part of the key of a captured
+    circuit: a graph bakes in the route of its capture, so changing any of
+    these (chip_smoke.py forces ``cmux.KS_GATHER_MAX = 0`` between calls)
+    captures a graph of its own instead of replaying another route."""
+    from .core import bootstrap as bs
+    from .ops import cmux
+    cap = None if device is None or cloud is None else bs.batch_cap(torch.device(device), cloud)
+    return (flag("TFHE_TPU_LOOKAHEAD"), flag("TFHE_TPU_SEPTET"), flag("TFHE_TPU_FUSEKS"),
+            flag("TFHE_TPU_NOISE_MODEL", "average"),
+            cmux.KS_GATHER_MAX, cmux.KS_GATHER_BLOCKS, cmux.KS_GATHER_MIN_COEFFS,
+            cmux.KS_MMA_BLOCKS, cmux.CMUX_FORMS,
+            bs.SMALL_BATCH_MAX, bs.K5_WAVE, bs.K5_WAVE_MS, bs.K5_TAIL_MS, bs.K3_WAVE,
+            bs.K3_WAVE_MS, cap)
 
 
 def ref_dir() -> str:

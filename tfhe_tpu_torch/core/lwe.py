@@ -7,7 +7,9 @@ ports `gpuParallel/lwe-functions.cu:100-296` with int32 wrap semantics.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -66,19 +68,50 @@ def lwe_stack(cts, axis: int = 0) -> LweCiphertext:
     )
 
 
+# The cached tensors of the circuit graph being warmed up or captured on
+# this thread (arith.circuit), by cache key
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def keeping(held: dict):
+    """For the body, on this thread, every cached plan a circuit reads
+    (``plan_tensor``) is looked up in `held` first and put there. A circuit's
+    eager warm-up and its capture as a CUDA graph run under the same `held`:
+    the capture then finds every plan the warm-up put on the device, even one
+    the plan cache has evicted since (a fresh copy from the host cannot be
+    captured), and the graph, which bakes in the addresses it read, holds
+    them for as long as it lives."""
+    outer = getattr(_CAPTURE, "held", None)
+    _CAPTURE.held = held
+    try:
+        yield held
+    finally:
+        _CAPTURE.held = outer
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan_tensor(key: bytes, dtype: str, shape: tuple, device: str) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(key, dtype).reshape(shape).copy()).to(device)
 
 
 def plan_tensor(v: np.ndarray, device) -> torch.Tensor:
-    """A static numpy plan (gather indices, per-image amplitudes) as a tensor
-    on `device`. A circuit's plans repeat from stage to stage, so each is
-    copied to the device once and cached by content: a fresh host-to-device
-    copy per call would make the host wait for all work queued before it.
-    The tensor is shared; callers must not write to it."""
+    """A static numpy plan (gather indices, per-image amplitudes, constant
+    bits) as a tensor on `device`. A circuit's plans repeat from stage to
+    stage, so each is copied to the device once and cached by content: a
+    fresh host-to-device copy per call would make the host wait for all work
+    queued before it, and a CUDA graph cannot capture one. Inside ``keeping``
+    the plans of the circuit's own list come first. The tensor is shared;
+    callers must not write to it."""
     v = np.ascontiguousarray(v)
-    return _plan_tensor(v.tobytes(), v.dtype.str, v.shape, str(device))
+    key = (v.tobytes(), v.dtype.str, v.shape, str(device))
+    held = getattr(_CAPTURE, "held", None)
+    if held is None:
+        return _plan_tensor(*key)
+    t = held.get(key)
+    if t is None:
+        t = held[key] = _plan_tensor(*key)
+    return t
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
@@ -109,7 +142,8 @@ def lwe_concat(cts, axis: int = 0) -> LweCiphertext:
 def noiseless_trivial(mu, n: int, batch_shape=(), device=None) -> LweCiphertext:
     """(0, mu) (ref lwe-functions.cu lweNoiselessTrivial). A Python or numpy
     scalar mu is filled on `device` (the card when None), with no
-    host-to-device copy; a tensor mu keeps its own device."""
+    host-to-device copy; a numpy array mu goes there through ``plan_tensor``;
+    a tensor mu keeps its own device."""
     batch_shape = tuple(batch_shape)
     if isinstance(mu, torch.Tensor):
         b = mu.to(torch.int32).expand(batch_shape).clone()
@@ -118,7 +152,7 @@ def noiseless_trivial(mu, n: int, batch_shape=(), device=None) -> LweCiphertext:
     if np.ndim(mu) == 0:
         b = torch.full(batch_shape, int(mu), dtype=torch.int32, device=device)
     else:
-        b = torch.as_tensor(np.asarray(mu, np.int32), device=device).expand(batch_shape).clone()
+        b = plan_tensor(np.asarray(mu, np.int32), device).expand(batch_shape).clone()
     return _trivial_of(b, n, batch_shape)
 
 
@@ -140,3 +174,13 @@ def lwe_sub(x: LweCiphertext, y: LweCiphertext) -> LweCiphertext:
 
 def lwe_negate(x: LweCiphertext) -> LweCiphertext:
     return LweCiphertext(-x.a, -x.b, x.cv)
+
+
+def lwe_add_mul(x: LweCiphertext, p: int, y: LweCiphertext) -> LweCiphertext:
+    """x + p*y with int32 wrap (ref lweAddMulTo); variance p^2 * y's."""
+    return LweCiphertext(x.a + p * y.a, x.b + p * y.b, x.cv + float(p * p) * y.cv)
+
+
+def lwe_sub_mul(x: LweCiphertext, p: int, y: LweCiphertext) -> LweCiphertext:
+    """x - p*y with int32 wrap (ref lweSubMulTo)."""
+    return LweCiphertext(x.a - p * y.a, x.b - p * y.b, x.cv + float(p * p) * y.cv)

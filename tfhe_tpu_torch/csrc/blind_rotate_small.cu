@@ -362,7 +362,10 @@ int log2i(int x) {
 
 // Launch configuration of blind_rotate_small_kernel<LOGN, NH> for B
 // samples; raises the kernel's shared-memory limit where it needs more than
-// the default.
+// the default, once per form and device (as cmux.cu's allow_smem_once): the
+// first, eager call of a circuit does it, and the capture of the circuit as a
+// CUDA graph (ops/cmux.py, arith.circuit) meets nothing but launches.
+constexpr int kSmallDevices = 64;
 template <int LOGN, int NH>
 cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
                       cudaStream_t stream) {
@@ -374,10 +377,16 @@ cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
                            (size_t)(NH + 2 * NH + (NH == 1 ? 4 : 0)) * row_words(N);
   constexpr size_t smem = sizeof(uint32_t) * words;
   if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(blind_rotate_small_kernel<LOGN, NH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static bool allowed[kSmallDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
+    if (dev >= kSmallDevices || !allowed[dev]) {
+      err = cudaFuncSetAttribute(blind_rotate_small_kernel<LOGN, NH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      if (dev < kSmallDevices) allowed[dev] = true;
+    }
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(kCluster * B);

@@ -23,6 +23,13 @@ N, and the last block of a batch that S does not divide holds fewer samples.
 The key-switch kernel has two arms behind one entry point
 (``keyswitch_plan``): a gather spread over the card for small batches and a
 one-hot int8 product on the tensor cores for large ones.
+
+Every entry point launches on torch's current stream and nothing on a
+wrapper's path copies from the host or reads back from the card, so a CUDA
+graph captures a whole circuit of them (``arith.circuit``): the first call
+loads the library, raises the kernels' shared-memory limits and reads the
+card's occupancy, all before the capture, and the graph replays the launches
+that ``LAUNCHES`` and ``SAMPLES`` counted while it was captured.
 """
 from __future__ import annotations
 
