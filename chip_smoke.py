@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port (tfhe_tpu_torch) on one NVIDIA GPU, or
+of its sharded path on four.
 
 Run from the repository root, on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card: phases 1-14
+    python3 chip_smoke.py --cards 4    # four cards: phases 1, 2, 13 and 15
+
+--cards 4 refuses a machine with fewer cards before any phase runs, and
+skips the one-card phases, which the default run checks.
 
 Phases (each prints its own lines; any failure raises and exits nonzero):
   1. device   the card's name, and its name and power limit from nvidia-smi;
@@ -101,16 +106,36 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
  12. noise    (after main) 4,096 AND gates at PARAMS_110 in batches of 256:
               failures (none allowed), |phase error| / (1/8) and the
               per-sample variance beside the noise models;
- 13. parallel (after apps) parallel.dryrun at world 4, every rank on this card
-              over gloo, then the full-width shapes with the reference's keys
-              (DP AND at B = 256, dp 2 x ks 2 AND and XOR at B = 256, a 16-bit
-              multiply one number a rank, Cannon 2x2 at 16 bits): each result
-              decrypts right and equals this process's single-process result
-              byte for byte; the ranks' launches and samples are the
-              "parallel" path; four processes sharing one card give no
-              scaling number;
+ 13. parallel (after apps) parallel.dryrun at world 4, then the full-width
+              shapes with the reference's keys (DP AND at B = 256, dp 2 x ks 2
+              AND and XOR at B = 256, a 16-bit multiply one number a rank,
+              Cannon 2x2 at 16 bits): each result decrypts right and equals
+              this process's single-process result byte for byte; the ranks'
+              launches and samples are the "parallel" path. On one card the
+              four ranks share it over gloo and give no scaling number; with
+              --cards 4 each rank has a card of its own, over NCCL; the lines
+              name the backend the ranks report;
  14. profile  one 16-bit add (eager) and one 8x8 matmul under torch.profiler:
-              device time by kernel and the device's idle share.
+              device time by kernel and the device's idle share;
+ 15. cards4   (--cards 4 only) one rank a card over NCCL, every rank checking
+              that it runs NCCL on cuda:rank, PARAMS_110 with the reference's
+              keys on every card; each shape warmed, then timed once between
+              barriers (the slowest rank's wall ms) beside one card's time
+              for the same inputs on card 0, whose result every rank's must
+              equal byte for byte (a, b; cv to rtol 1e-6), decrypting right:
+              (b) DP AND at 16,384 (4,096 a card, K4), the all-gather alone;
+              (c) the dp 2 x ks 2 and dp 1 x ks 4 AND at 1,024 (256 a card,
+              K3, the key-switch table split over ks) beside DP AND at 1,024,
+              their collectives alone; (d) a 16-bit multiply of 128 numbers,
+              32 a card (K5); (e) Cannon 2x2 over NCCL point-to-point; (f) a
+              16 x 16 16-bit matmul with a's rows sharded and b replicated
+              (matmul_rows through sharded_circuit), against numpy; (g) the
+              bootstrap of 4,456,448 samples (a 16-bit 32 x 32 matmul's
+              opening AND) made on every card from one seed: 1,114,112 a card,
+              above its cap, in two parts; each card's rows of wide_rows()
+              against the plain version, every sample decrypted on the card;
+              K3 and K5 against their plain versions on every card. The
+              ranks' counts are the "cards4" path.
 
 No phase catches a failure and goes on, and no app or wrapper moves to the
 CPU or to a plain version on its own: the plain route runs only where a phase
@@ -118,12 +143,14 @@ asks for it, on CPU copies, to be compared with.
 
 The line before the last is a JSON object with the path's kernels (the
 "graph" path: the launches the [graph] phase's replays made, as the graphs
-count them); the last
+count them; with --cards 4 the "parallel" and "cards4" paths, each kernel's
+max |err| on the four cards and no times); the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script exits
 nonzero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import hashlib
 import json
@@ -1917,11 +1944,34 @@ def cannon_schedule(a, b, cloud):
     return acc
 
 
-def parallel_rank(rank: int, world: int, device, inputs: dict) -> dict:
+def timed_between_barriers(fn, device) -> tuple:
+    """fn() started after a barrier of every rank (on this rank's card under
+    NCCL) and synchronised: (result, wall ms)."""
+    import torch.distributed as dist
+    dist.barrier(device_ids=[device.index] if dist.get_backend() == "nccl" else None)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def expect_card_a_rank(rank: int, device) -> str:
+    """The backend of this rank, which must be NCCL with rank r on cuda:r
+    (--cards 4); raises otherwise."""
+    import torch.distributed as dist
+    backend = dist.get_backend()
+    if backend != "nccl" or device != torch.device("cuda", rank):
+        raise AssertionError(f"rank {rank}: backend {backend} on {device}; --cards {CARDS} "
+                             f"takes NCCL with rank r on cuda:r")
+    return backend
+
+
+def parallel_rank(rank: int, world: int, device, inputs: dict, one_a_card: bool = False) -> dict:
     """One rank of the full-width [parallel] shapes: the reference's keys at
     PARAMS_110 on this rank's device, each shape run once to warm, then once
     timed between barriers with the launch counts set to 0 before. Returns
-    the results (numpy), each shape's wall ms and the counts."""
+    the results (numpy), each shape's wall ms and the counts. one_a_card
+    (--cards 4): the rank raises unless it runs NCCL on cuda:rank."""
     import torch.distributed as dist
     import tfhe_tpu_torch as tt
     from tfhe_tpu_torch import arith
@@ -1930,6 +1980,8 @@ def parallel_rank(rank: int, world: int, device, inputs: dict) -> dict:
     from tfhe_tpu_torch.parallel.cannon import cannon_matmul_mesh, make_mesh2d
     from tfhe_tpu_torch.parallel.mesh import (make_mesh, make_mesh2d_dp_ks, sharded_circuit,
                                               sharded_gate2, sharded_gate2_tp_ks)
+    if one_a_card:
+        expect_card_a_rank(rank, device)
     sk = tt.keygen_reference(tt.PARAMS_110, device=device)
     cloud = sk.cloud
     ct = {k: LweCiphertext(*(torch.from_numpy(v).to(device) for v in arrs))
@@ -1949,34 +2001,45 @@ def parallel_rank(rank: int, world: int, device, inputs: dict) -> dict:
     cmux.reset_launches()
     outs, ms = {}, {}
     for name, fn in shapes.items():
-        dist.barrier()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize(device)
-        ms[name] = (time.perf_counter() - t0) * 1e3
+        out, ms[name] = timed_between_barriers(fn, device)
         outs[name] = tuple(v.cpu().numpy() for v in (out.a, out.b, out.cv))
     return {"out": outs, "ms": ms, "launches": dict(cmux.LAUNCHES),
-            "samples": dict(cmux.SAMPLES)}
+            "samples": dict(cmux.SAMPLES), "backend": dist.get_backend(), "device": str(device)}
 
 
-def phase_parallel(sk, x, y, bits_x, bits_y, smi: str) -> dict:
-    """parallel.dryrun at world PARALLEL_WORLD with every rank on this card
-    (gloo: NCCL takes one rank a card), then the full-width shapes, each
-    decrypted and held against this process's single-process result on the
-    same keys and inputs. Returns the ranks' summed counts."""
+def backend_note(ranks: list) -> str:
+    """Where the ranks ran, from what they report: one rank a card over NCCL,
+    or several processes time-slicing one card over gloo."""
+    backends = {r["backend"] for r in ranks}
+    devices = [r["device"] for r in ranks]
+    if backends == {"nccl"} and len(set(devices)) == len(ranks):
+        return f"one rank a card (NCCL), {len(ranks)} cards: {', '.join(devices)}"
+    return (f"{len(ranks)} processes sharing one H100 over {'/'.join(sorted(backends))}: "
+            f"not a scaling number")
+
+
+def phase_parallel(sk, x, y, bits_x, bits_y, smi: str, one_a_card: bool = False) -> dict:
+    """parallel.dryrun at world PARALLEL_WORLD, then the full-width shapes,
+    each decrypted and held against this process's single-process result on
+    the same keys and inputs. The ranks take one card each where the machine
+    has PARALLEL_WORLD cards (NCCL, --cards 4), else they share this card
+    (gloo); the lines name the backend the ranks report. one_a_card (--cards
+    4): the phase raises unless the dry run and every rank ran NCCL, rank r on
+    cuda:r. Returns the ranks' summed counts."""
     import tfhe_tpu_torch as tt
     from tfhe_tpu_torch import arith, gates
     from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.parallel import dryrun
-    note = f"{PARALLEL_WORLD} processes sharing one H100: not a scaling number"
     t0 = time.perf_counter()
     lines = dryrun.run(PARALLEL_WORLD, dryrun.dryrun_multichip)[0]
     for line in lines:
         log(f"[parallel] {line}")
     log(f"[parallel] parallel.dryrun {PARALLEL_WORLD}: {time.perf_counter() - t0:.1f} s of wall "
-        f"time, process start and keys included ({note}; {smi})")
+        f"time, process start and keys included ({smi})")
     if len(lines) != 6 or not all(line.endswith("values OK") for line in lines):
         raise AssertionError(f"[parallel] the dry run did not pass every shape: {lines}")
+    if one_a_card and "(nccl on cuda:0)" not in lines[0]:
+        raise AssertionError(f"[parallel] the dry run did not run over NCCL: {lines[0]}")
 
     params, cloud = sk.params, sk.cloud
     gen = torch.Generator(device="cuda")
@@ -1991,8 +2054,9 @@ def phase_parallel(sk, x, y, bits_x, bits_y, smi: str) -> dict:
            "cb": arith.encrypt_int(sk, mat_b, 16, gen, "cuda")}
     inputs = {k: tuple(v.cpu().numpy() for v in (c.a, c.b, c.cv)) for k, c in enc.items()}
     t0 = time.perf_counter()
-    ranks = dryrun.run(PARALLEL_WORLD, parallel_rank, inputs)
+    ranks = dryrun.run(PARALLEL_WORLD, parallel_rank, inputs, one_a_card)
     wall = time.perf_counter() - t0
+    note = backend_note(ranks)
     from tfhe_tpu_torch.core.lwe import LweCiphertext
 
     def lwe(arrs):
@@ -2031,6 +2095,403 @@ def phase_parallel(sk, x, y, bits_x, bits_y, smi: str) -> dict:
     log(f"[parallel] the full-width shapes: {wall:.1f} s of wall time with process start and keys; "
         f"launches and samples over the ranks {total}")
     expect_routes("parallel", total, ("blind_rotate_fused_packed", "keyswitch"))
+    return total
+
+
+# ----------------------------------------------------------------- four cards
+
+CARDS = 4                 # --cards 4: one rank a card over NCCL
+CARDS_AND = 16384         # (b) DP AND, 4,096 a card through K4
+CARDS_TP = 1024           # (c) dp x ks AND, 256 a card through K3 and the split table
+CARDS_MUL = 128           # (d) 16-bit numbers of the whole-circuit multiply, 32 a card
+CARDS_MATRIX = 16         # (f) 16 x 16 16-bit matmul, 4 rows of a a card
+# (g) the opening AND of a 16-bit 32 x 32 matmul: 1,114,112 samples a card,
+# above one card's cap, so every card bootstraps its share in parts
+CARDS_WIDE = 32 ** 3 * NBITS * (NBITS + 1) // 2
+CARDS_WIDE_SEED = 4456448
+CHUNK_ROWS = 1 << 18      # samples a step when (g) encrypts and decrypts on the card
+CARDS_REPEATS = 5         # (b), (c) and (g)'s gather timed again this often: their spread
+
+
+def matmul_rows(a_rows, b_copies, cloud):
+    """One rank's rows of a product: linalg.matmul of its rows of `a` by the
+    whole of `b`, the copy of b it holds (the caller stacks one copy a rank
+    along a new leading axis). With parallel.mesh.sharded_circuit this is the
+    row-sharded matmul: a's rows and b's copies split over the ranks, every
+    rank multiplies its rows by all of b, the rows gathered."""
+    from tfhe_tpu_torch import linalg
+    return linalg.matmul(a_rows, b_copies[0], cloud)
+
+
+def encrypt_bits_on_card(sk, B: int, seed: int, device):
+    """B random bits and their encryptions, made on `device` from one seeded
+    generator, CHUNK_ROWS at a time (the key's dot product holds int64
+    temporaries): every card given the same seed holds the same batch."""
+    from tfhe_tpu_torch.core.crypt import _key, lwe_encrypt
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    from tfhe_tpu_torch.numeric import mod_switch_to_torus32
+    params = sk.params
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    bits = torch.randint(0, 2, (B,), generator=gen, dtype=torch.int32, device=device)
+    mu = mod_switch_to_torus32(1, 8, device=device)
+    key = _key(sk, device)
+    out = LweCiphertext(torch.empty((B, params.n), dtype=torch.int32, device=device),
+                        torch.empty(B, dtype=torch.int32, device=device),
+                        torch.empty(B, dtype=torch.float32, device=device))
+    for s in range(0, B, CHUNK_ROWS):
+        part = lwe_encrypt(torch.where(bits[s:s + CHUNK_ROWS] != 0, mu, -mu), key,
+                           params.ks_stdev, gen)
+        out.a[s:s + CHUNK_ROWS], out.b[s:s + CHUNK_ROWS] = part.a, part.b
+        out.cv[s:s + CHUNK_ROWS] = part.cv
+    return bits, out
+
+
+def decrypt_bits_on_card(sk, ct) -> torch.Tensor:
+    """The bits of a flat batch, decrypted on its card CHUNK_ROWS at a time."""
+    from tfhe_tpu_torch.core.crypt import _key, lwe_phase
+    key = _key(sk, ct.device)
+    return torch.cat([(lwe_phase(ct[s:s + CHUNK_ROWS], key) > 0).to(torch.int32)
+                      for s in range(0, ct.b.shape[0], CHUNK_ROWS)])
+
+
+def plain_gate_bootstrap(x, cloud):
+    """bootstrap(x, MU) through the plain versions of what the large-batch
+    route launches: K4's blind rotate and its key switch."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    params = cloud.params
+    acc, bara = bs._prepare_acc(x, gates.MU, cloud)
+    rot = cmux.blind_rotate_fused_ref(acc.permute(1, 2, 0).contiguous(), bara.T.contiguous(),
+                                      cloud.bk_rows, cloud.bk_rows_shoup, params)
+    r, ext = cmux.keyswitch_ref(rot, cloud.ks_table_perm, params)
+    return bs.finish_fused_ks(r, ext, params)
+
+
+def ct_digest(ct) -> list:
+    """A cheap fingerprint of a ciphertext batch on its card (sums of a and b
+    as int64 words, of cv in float64), to hold the ranks' 8.9 GB results
+    against each other without moving them."""
+    a = ct.a.reshape(-1)
+    return [int(a[: a.numel() // 2 * 2].view(torch.int64).sum().item()),
+            int(ct.b.to(torch.int64).sum().item()), float(ct.cv.double().sum().item())]
+
+
+def tp_collectives(cloud, mesh, B: int):
+    """The collectives of sharded_gate2_tp_ks on a batch of B, alone, on zeros
+    of the shapes the gate sends: three all-gathers of the extracted samples
+    over the ks row, the all-reduce of the partial key switches, the final
+    gather of the outputs over the grid."""
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    from tfhe_tpu_torch.parallel.mesh import _gather_ct, all_gather_cat, all_reduce_sum
+    params, dev = cloud.params, mesh.device
+    per, ks = B // mesh.size, mesh.shape[1]
+    row = mesh.groups["ks"]
+    for t in (torch.zeros((per, params.k * params.N), dtype=torch.int32, device=dev),
+              torch.zeros(per, dtype=torch.int32, device=dev),
+              torch.zeros(per, dtype=torch.float32, device=dev)):
+        all_gather_cat(t, row, ks, mesh)
+    all_reduce_sum(torch.zeros((per * ks, cloud.ks_table.shape[1]), dtype=torch.int32,
+                               device=dev), row, mesh)
+    mine = LweCiphertext(torch.zeros((per, params.n), dtype=torch.int32, device=dev),
+                         torch.zeros(per, dtype=torch.int32, device=dev),
+                         torch.zeros(per, dtype=torch.float32, device=dev))
+    return _gather_ct(mine, mesh.group, mesh.size, mesh)
+
+
+def cards_rank(rank: int, world: int, device, inputs: dict) -> dict:
+    """One rank of [cards4], one rank a card over NCCL: the reference's keys at
+    PARAMS_110 on this card; shapes (b)-(f) warmed once, then each timed once
+    between barriers with the launch counts set to 0 before (b); the
+    collectives of (b) and (c) alone; (g) built on this card from a seed,
+    bootstrapped in this card's parts, its rows held against the plain version
+    and every sample decrypted here; K3 and K5 against their plain versions;
+    last (b), the (c) shapes and their collectives CARDS_REPEATS more times,
+    their spread. Returns the (b)-(f) results (numpy), wall ms, (g)'s
+    summary, the max |err| by kernel and the counts of (b)-(g)."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith
+    from tfhe_tpu_torch.core.lwe import LweCiphertext
+    from tfhe_tpu_torch.ops import cmux
+    from tfhe_tpu_torch.parallel.cannon import cannon_matmul_mesh, make_mesh2d
+    from tfhe_tpu_torch.parallel.mesh import (_gather_ct, make_mesh, make_mesh2d_dp_ks,
+                                              sharded_circuit, sharded_gate2,
+                                              sharded_gate2_tp_ks)
+    backend = expect_card_a_rank(rank, device)
+    sk = tt.keygen_reference(tt.PARAMS_110, device=device)
+    cloud = sk.cloud
+    ct = {k: LweCiphertext(*(torch.from_numpy(v).to(device) for v in arrs))
+          for k, arrs in inputs.items()}
+    mesh = make_mesh(world, device=device)
+    dp2ks2, dp1ks4 = (make_mesh2d_dp_ks(2, 2, device=device),
+                      make_mesh2d_dp_ks(1, 4, device=device))
+    grid = make_mesh2d(2, device=device)
+    x1k, y1k = ct["x"][:CARDS_TP], ct["y"][:CARDS_TP]
+    shapes = {
+        f"(b) dp AND B={CARDS_AND}": lambda: sharded_gate2("AND", ct["x"], ct["y"], cloud, mesh),
+        f"(c) dp AND B={CARDS_TP}": lambda: sharded_gate2("AND", x1k, y1k, cloud, mesh),
+        f"(c) dp 2 x ks 2 AND B={CARDS_TP}": lambda: sharded_gate2_tp_ks("AND", x1k, y1k, cloud,
+                                                                         dp2ks2),
+        f"(c) dp 1 x ks 4 AND B={CARDS_TP}": lambda: sharded_gate2_tp_ks("AND", x1k, y1k, cloud,
+                                                                         dp1ks4),
+        f"(d) mul16 x{CARDS_MUL}": lambda: sharded_circuit(arith.mul, (ct["ma"], ct["mb"]),
+                                                           cloud, mesh),
+        "(e) cannon 2x2": lambda: cannon_matmul_mesh(ct["ca"], ct["cb"], cloud, grid),
+        f"(f) matmul {CARDS_MATRIX}x{CARDS_MATRIX}": lambda: sharded_circuit(
+            matmul_rows, (ct["fa"], ct["fb"]), cloud, mesh),
+    }
+    warm = dict(shapes)
+    # (f) warms on 4 x 2 by 2 x 2, as [linalg] warms its matmuls at 2x2
+    warm[f"(f) matmul {CARDS_MATRIX}x{CARDS_MATRIX}"] = lambda: sharded_circuit(
+        matmul_rows, (ct["fa"][:world, :2], ct["fb"][:, :2, :2]), cloud, mesh)
+    for fn in warm.values():
+        fn()
+    torch.cuda.synchronize(device)
+    cmux.reset_launches()
+    outs, ms = {}, {}
+    for name, fn in shapes.items():
+        out, ms[name] = timed_between_barriers(fn, device)
+        outs[name] = tuple(v.cpu().numpy() for v in (out.a, out.b, out.cv))
+    # the collectives alone, at the shapes (b) and (c) send
+    per = CARDS_AND // world
+    mine = LweCiphertext(*(torch.from_numpy(v[rank * per:(rank + 1) * per]).to(device)
+                           for v in outs[f"(b) dp AND B={CARDS_AND}"]))
+    collectives = {f"(b) gather B={CARDS_AND}": lambda: _gather_ct(mine, mesh.group, world, mesh),
+                   f"(c) dp 2 x ks 2 collectives B={CARDS_TP}": lambda: tp_collectives(
+                       cloud, dp2ks2, CARDS_TP),
+                   f"(c) dp 1 x ks 4 collectives B={CARDS_TP}": lambda: tp_collectives(
+                       cloud, dp1ks4, CARDS_TP)}
+    for fn in collectives.values():
+        fn()
+    for name, fn in collectives.items():
+        ms[name] = timed_between_barriers(fn, device)[1]
+    wide = cards_wide(sk, rank, world, device, mesh)
+    counts = read_counts()
+    per_tp = CARDS_TP // world
+    errs = cards_kernel_checks(sk, x1k[rank * per_tp:(rank + 1) * per_tp],
+                               f"[cards4] card {rank}")
+    errs["blind_rotate_ks_fused"] = errs["keyswitch"] = wide.pop("max_abs_err")
+    again = {name: fn for name, fn in {**shapes, **collectives}.items()
+             if name.startswith(("(b) dp AND", "(c)"))}
+    spread = {name: [timed_between_barriers(fn, device)[1] for _ in range(CARDS_REPEATS)]
+              for name, fn in again.items()}
+    return {"out": outs, "ms": ms, "wide": wide, **counts, "max_abs_err": errs,
+            "spread": spread, "backend": backend, "device": str(device)}
+
+
+def cards_kernel_checks(sk, x, label: str) -> dict:
+    """K3 on this card's share of (c), and K5 alone and with the key switch
+    on 64 of those samples, against their plain versions on this card: the
+    kernels (g) does not hold. Returns the max |err| by kernel (0)."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    params, cloud = sk.params, sk.cloud
+    acc, bara = bs._prepare_acc(x, gates.MU, cloud)
+    acc_t, bara_t = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
+    bk, sh = cloud.bk_rows, cloud.bk_rows_shoup
+    k3 = expect_equal(f"{label} blind_rotate B={x.b.shape[0]}",
+                      cmux.blind_rotate_fused(acc_t, bara_t, bk, sh, params),
+                      cmux.blind_rotate_fused_ref(acc_t, bara_t, bk, sh, params))
+    k5 = check_k5(params, acc[:64], bara[:64].T, cloud.bk_ntt, cloud.bk_ntt_shoup,
+                  cloud.ks_table_perm, label)
+    return {"blind_rotate_fused": k3, "blind_rotate_fused_packed": k5}
+
+
+def cards_wide(sk, rank: int, world: int, device, mesh, samples: int = CARDS_WIDE) -> dict:
+    """(g) on this rank: `samples` made on the card from one seed,
+    bootstrapped by sharded_bootstrap_step over the mesh, this card's share
+    in parts of the cap it derives; the gather of the shares alone,
+    CARDS_REPEATS times between barriers; this card's rows of wide_rows()
+    (and either side of each part's border) held against the plain version,
+    a and b exact; every sample decrypted on the card."""
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux
+    from tfhe_tpu_torch.parallel.mesh import _gather_ct, sharded_bootstrap_step
+    cloud, params = sk.cloud, sk.params
+    t0 = time.perf_counter()
+    bits, x = encrypt_bits_on_card(sk, samples, CARDS_WIDE_SEED, device)
+    torch.cuda.synchronize(device)
+    made_s = time.perf_counter() - t0
+    per, cap = samples // world, bs.batch_cap(device, cloud)
+    before = dict(cmux.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(device)
+    out, ms = timed_between_barriers(lambda: sharded_bootstrap_step(x, cloud, mesh), device)
+    peak = torch.cuda.max_memory_allocated(device)
+    parts = cmux.LAUNCHES["blind_rotate_ks_fused"] - before.get("blind_rotate_ks_fused", 0)
+    mine = out[rank * per:(rank + 1) * per]
+    gather_ms = [timed_between_barriers(lambda: _gather_ct(mine, mesh.group, world, mesh),
+                                        device)[1] for _ in range(CARDS_REPEATS)]
+    rng = np.random.RandomState(CARDS_WIDE_SEED + rank)
+    rows = set(wide_rows(per, params.N, rng).tolist())
+    for border in range(cap, per, cap):
+        rows.update((border - 1, border, border + 1))
+    rows = np.array(sorted(r for r in rows if 0 <= r < per), np.int64) + rank * per
+    pick = torch.from_numpy(rows).to(device)
+    t0 = time.perf_counter()
+    want = plain_gate_bootstrap(x[pick], cloud)
+    got = out[pick]
+    err = expect_equal(f"[cards4] (g) rank {rank}: a and b on its rows", (got.a, got.b),
+                       (want.a, want.b))
+    if not torch.allclose(got.cv, want.cv, rtol=1e-6, atol=0.0):
+        raise AssertionError(f"[cards4] (g) rank {rank}: cv differs from the plain version "
+                             f"on its rows")
+    plain_s = time.perf_counter() - t0
+    wrong = int((decrypt_bits_on_card(sk, out) != bits).sum().item())
+    return {"ms": ms, "gather_ms": gather_ms, "parts": parts, "cap": cap, "per_card": per,
+            "peak_bytes": peak, "rows_held": len(rows), "plain_s": plain_s, "made_s": made_s,
+            "decrypted_wrong": wrong, "digest": ct_digest(out), "in_digest": ct_digest(x),
+            "max_abs_err": err}
+
+
+def phase_cards4(sk, smi: str) -> dict:
+    """[cards4]: shapes (b)-(g) with one rank a card over NCCL (cards_rank),
+    each held against this process's single-process result on card 0 for the
+    same inputs (a, b exact; cv to rtol 1e-6, the dp x ks cv the worst case
+    that ks_finalize charges without digit counts) and decrypted; (f) against
+    numpy; (g) on each card against the plain version and decrypted in full
+    there. Prints the slowest rank's wall ms beside one card's. Returns the
+    ranks' summed counts."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import arith, gates, linalg
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.core.lwe import LweCiphertext, lwe_stack
+    from tfhe_tpu_torch.parallel import dryrun
+    params, cloud = sk.params, sk.cloud
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4096)
+    rng = np.random.RandomState(4096)
+    bits_x, bits_y = rng.randint(0, 2, size=(2, CARDS_AND)).astype(np.int32)
+    va, vb = rng.randint(0, 1 << 16, size=(2, CARDS_MUL))
+    mat_a, mat_b = rng.randint(0, 1 << 8, size=(2, 2, 2))
+    fa, fb = rng.randint(0, 1 << 8, size=(2, CARDS_MATRIX, CARDS_MATRIX))
+    enc = {"x": tt.encrypt_bits(sk, bits_x, gen, "cuda"),
+           "y": tt.encrypt_bits(sk, bits_y, gen, "cuda"),
+           "ma": arith.encrypt_int(sk, va, NBITS, gen, "cuda"),
+           "mb": arith.encrypt_int(sk, vb, NBITS, gen, "cuda"),
+           "ca": arith.encrypt_int(sk, mat_a, NBITS, gen, "cuda"),
+           "cb": arith.encrypt_int(sk, mat_b, NBITS, gen, "cuda"),
+           "fa": arith.encrypt_int(sk, fa, NBITS, gen, "cuda"),
+           "fb1": arith.encrypt_int(sk, fb, NBITS, gen, "cuda")}
+    enc["fb"] = lwe_stack([enc["fb1"]] * CARDS, axis=0)
+    inputs = {k: tuple(v.cpu().numpy() for v in (c.a, c.b, c.cv))
+              for k, c in enc.items() if k != "fb1"}
+    torch.cuda.empty_cache()              # card 0 is rank 0's too
+    t0 = time.perf_counter()
+    ranks = dryrun.run(CARDS, cards_rank, inputs)
+    wall = time.perf_counter() - t0
+    note = backend_note(ranks)
+    if not note.startswith("one rank a card (NCCL)"):
+        raise AssertionError(f"[cards4] the ranks did not run one a card over NCCL: {note}")
+    log(f"[cards4] {note}; {wall:.1f} s of wall time with process start, keys and (g) ({smi})")
+
+    def lwe(arrs):
+        return LweCiphertext(*(torch.from_numpy(v).cuda() for v in arrs))
+
+    def one_card(fn, warm: bool = True) -> tuple:
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    x, y = enc["x"], enc["y"]
+    worst_cv = bs._bootstrap_variance(params) + params.n_extract * params.ks_t * params.ks_stdev ** 2
+    and_1k, and_1k_ms = one_card(lambda: gates.AND(x[:CARDS_TP], y[:CARDS_TP], cloud))
+    tp_want = LweCiphertext(and_1k.a, and_1k.b, torch.full_like(and_1k.cv, worst_cv))
+    and_all, and_all_ms = one_card(lambda: gates.AND(x, y, cloud))
+    per = CARDS_AND // CARDS
+    _, and_per_ms = one_card(lambda: gates.AND(x[:per], y[:per], cloud))
+    mul, mul_ms = one_card(lambda: arith.mul(enc["ma"], enc["mb"], cloud))
+    cannon, cannon_ms = one_card(lambda: cannon_schedule(enc["ca"], enc["cb"], cloud))
+    linalg.matmul(enc["fa"][:2, :2], enc["fb1"][:2, :2], cloud)       # warm at 2x2
+    prod, prod_ms = one_card(lambda: linalg.matmul(enc["fa"], enc["fb1"], cloud), warm=False)
+    one = {f"(b) dp AND B={CARDS_AND}": (and_all, and_all_ms, bits_x & bits_y),
+           f"(c) dp AND B={CARDS_TP}": (and_1k, and_1k_ms, (bits_x & bits_y)[:CARDS_TP]),
+           f"(c) dp 2 x ks 2 AND B={CARDS_TP}": (tp_want, and_1k_ms,
+                                                 (bits_x & bits_y)[:CARDS_TP]),
+           f"(c) dp 1 x ks 4 AND B={CARDS_TP}": (tp_want, and_1k_ms,
+                                                 (bits_x & bits_y)[:CARDS_TP]),
+           f"(d) mul16 x{CARDS_MUL}": (mul, mul_ms, signed(va * vb, NBITS)),
+           "(e) cannon 2x2": (cannon, cannon_ms, signed(mat_a @ mat_b, NBITS)),
+           f"(f) matmul {CARDS_MATRIX}x{CARDS_MATRIX}": (prod, prod_ms,
+                                                         signed(fa @ fb, NBITS))}
+    for name, (want, one_ms, truth) in one.items():
+        got = lwe(ranks[0]["out"][name])
+        for r in range(1, CARDS):
+            if not all(np.array_equal(g, w) for g, w in zip(ranks[r]["out"][name],
+                                                             ranks[0]["out"][name])):
+                raise AssertionError(f"[cards4] {name}: rank {r} returned another result")
+        expect_same_ct(f"[cards4] {name}", got, want)
+        plain = (tt.decrypt_bits(sk, got) if "AND" in name else arith.decrypt_int(sk, got))
+        if not np.array_equal(plain, truth):
+            raise AssertionError(f"[cards4] {name} decrypts to {plain}, want {truth}")
+        slowest = max(r["ms"][name] for r in ranks)
+        log(f"[cards4] {name}: decrypts right; every rank's result byte-equal to one card's; "
+            f"{slowest:.3f} ms on the slowest of {CARDS} cards (ranks "
+            f"{', '.join(format(r['ms'][name], '.3f') for r in ranks)}), one card "
+            f"{one_ms:.3f} ms, {one_ms / slowest:.2f} x ({smi}; {CARDS} cards)")
+    for name in ranks[0]["ms"]:
+        if "gather" in name or "collectives" in name:
+            log(f"[cards4] {name} alone: {max(r['ms'][name] for r in ranks):.3f} ms on the "
+                f"slowest rank ({smi}; {CARDS} cards)")
+    b_name = f"(b) dp AND B={CARDS_AND}"
+    b_ms = max(r["ms"][b_name] for r in ranks)
+    log(f"[cards4] (b) rates: {CARDS} cards {CARDS_AND / b_ms * 1e3:.1f} bootstraps/s; one card "
+        f"{CARDS_AND / and_all_ms * 1e3:.1f}/s at B={CARDS_AND}, {per / and_per_ms * 1e3:.1f}/s "
+        f"at B={per} ({and_per_ms:.3f} ms); the gather's share "
+        f"{100 * max(r['ms'][f'(b) gather B={CARDS_AND}'] for r in ranks) / b_ms:.1f} % "
+        f"({smi}; {CARDS} cards)")
+    one_again = {CARDS_AND: lambda: gates.AND(x, y, cloud),
+                 CARDS_TP: lambda: gates.AND(x[:CARDS_TP], y[:CARDS_TP], cloud)}
+    one_times = {B: [one_card(fn, warm=False)[1] for _ in range(CARDS_REPEATS)]
+                 for B, fn in one_again.items()}
+    for name in ranks[0]["spread"]:
+        four = [max(times) for times in zip(*(r["spread"][name] for r in ranks))]
+        line = (f"[cards4] {name} spread, {CARDS_REPEATS} more runs: {CARDS} cards (slowest rank) "
+                f"{', '.join(format(t, '.3f') for t in four)} ms")
+        B = CARDS_AND if name.startswith("(b)") else CARDS_TP
+        if "AND" in name:
+            line += (f"; one card's AND at B={B} "
+                     f"{', '.join(format(t, '.3f') for t in one_times[B])} ms")
+        log(f"{line} ({smi}; {CARDS} cards)")
+    wide = [r["wide"] for r in ranks]
+    if len({json.dumps(w["in_digest"]) for w in wide}) != 1:
+        raise AssertionError(f"[cards4] (g) the ranks built different inputs: {wide}")
+    if len({json.dumps(w["digest"]) for w in wide}) != 1:
+        raise AssertionError(f"[cards4] (g) the ranks gathered different results: {wide}")
+    for r, w in enumerate(wide):
+        if w["parts"] != -(-w["per_card"] // w["cap"]) or w["parts"] < 2:
+            raise AssertionError(f"[cards4] (g) rank {r}: {w['parts']} parts of {w['per_card']} "
+                                 f"samples at a cap of {w['cap']}")
+        if w["decrypted_wrong"]:
+            raise AssertionError(f"[cards4] (g) rank {r}: {w['decrypted_wrong']} samples "
+                                 f"decrypt wrong")
+        log(f"[cards4] (g) bootstrap B={CARDS_WIDE}, card {r}: {w['per_card']} samples in "
+            f"{w['parts']} parts at its cap of {w['cap']}; {w['ms']:.3f} ms; peak device memory "
+            f"{w['peak_bytes'] / 2 ** 20:.1f} MiB; byte-equal to the plain version on "
+            f"{w['rows_held']} rows ({w['plain_s']:.1f} s); every sample of the {CARDS_WIDE} "
+            f"decrypts right; input made on the card in {w['made_s']:.1f} s ({smi})")
+    g_ms = max(w["ms"] for w in wide)
+    log(f"[cards4] (g) {CARDS_WIDE} samples on {CARDS} cards: {g_ms:.3f} ms on the slowest, "
+        f"{CARDS_WIDE / g_ms * 1e3:.1f} bootstraps/s ({smi}; {CARDS} cards)")
+    g_gather = [max(times) for times in zip(*(w["gather_ms"] for w in wide))]
+    log(f"[cards4] (g) gather of the {CARDS_WIDE} results alone, {CARDS_REPEATS} runs: "
+        f"{', '.join(format(t, '.3f') for t in g_gather)} ms on the slowest rank, "
+        f"{100 * min(g_gather) / g_ms:.2f}-{100 * max(g_gather) / g_ms:.2f} % of (g) "
+        f"({smi}; {CARDS} cards)")
+    total = {"launches": {}, "samples": {}}
+    for r in ranks:
+        add_counts(total, r)
+    log(f"[cards4] launches and samples of (b)-(g) over the ranks {total}")
+    expect_routes("cards4", total, BLIND_ROTATES + ("keyswitch",))
+    total["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in ranks)
+                            for k in ranks[0]["max_abs_err"]}
+    log(f"[cards4] the kernels against their plain versions on every card, max |err| by kernel "
+        f"{total['max_abs_err']}")
     return total
 
 
@@ -2074,11 +2535,27 @@ def phase_profile(label: str, fn, smi: str, tag: str = "profile") -> None:
         f"({len(top) - 6} names)")
 
 
-def main() -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The options; --cards beyond the cards visible is refused here, before
+    any phase runs."""
+    ap = argparse.ArgumentParser(description="Smoke run of tfhe_tpu_torch on the card.")
+    ap.add_argument("--cards", type=int, default=1, choices=(1, CARDS),
+                    help=f"1 (default): every one-card phase, [parallel] with the ranks "
+                         f"sharing this card; {CARDS}: [device], [build], [parallel] and "
+                         f"[cards4] with one rank a card over NCCL")
+    args = ap.parse_args(argv)
+    visible = torch.cuda.device_count()
+    if args.cards > visible:
+        ap.error(f"--cards {args.cards} needs {args.cards} cards; {visible} visible")
+    return args
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
         return 1
+    args = parse_args(argv)
     import tfhe_tpu_torch as tt
     from tfhe_tpu_torch import config, ref_keygen
     from tfhe_tpu_torch.core.lwe import LweCiphertext
@@ -2110,6 +2587,8 @@ def main() -> int:
     gen.manual_seed(2024)
     x = tt.encrypt_bits(sk, bits_x, gen, "cuda")
     y = tt.encrypt_bits(sk, bits_y, gen, "cuda")
+    if args.cards == CARDS:
+        return main_cards(sk, x, y, bits_x, bits_y, dev)
 
     timed = phase_kernels(sk, x, dev["smi"])
     log_peak("kernels", dev["smi"])
@@ -2155,55 +2634,73 @@ def main() -> int:
              "circuits": circuit_counts, "graph": graph_counts, "linalg": linalg_counts,
              "linreg": linreg_counts,
              "apps": apps_counts, "parallel": parallel_counts}
+    log(kernels_line(paths, timed))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                           "count": torch.cuda.device_count()}}))
+    return 0
 
+
+def main_cards(sk, x, y, bits_x, bits_y, dev: dict) -> int:
+    """--cards 4: [parallel] and [cards4] with one rank a card over NCCL. The
+    one-card phases are the default run's; the kernels line gives each
+    kernel's launches on these paths and its max |err| against the plain
+    version on the four cards, and leaves the times to the one-card run."""
+    parallel_counts = phase_parallel(sk, x, y, bits_x, bits_y, dev["smi"], one_a_card=True)
+    log_peak("parallel", dev["smi"])
+    cards_counts = phase_cards4(sk, dev["smi"])
+    log_peak("cards4", dev["smi"])
+    errs = cards_counts.pop("max_abs_err")
+    untimed = {"ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+               "library_ms": None, "timed_by": "the one-card run (python3 chip_smoke.py)"}
+    timed = {name: {"max_abs_err": errs.get(counter), **untimed}
+             for name, counter, _, _ in ON_PATH + OFF_PATH}
+    log(kernels_line({"parallel": parallel_counts, "cards4": cards_counts}, timed))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# (name in the kernels line, launch counter, source, the TPU kernel it replaces)
+ON_PATH = (
+    ("blind_rotate", "blind_rotate_fused", SOURCE, "tfhe_tpu/ops/cmux_pallas.py:555"),
+    ("blind_rotate_ks", "blind_rotate_ks_fused", SOURCE, "tfhe_tpu/ops/cmux_pallas.py:505"),
+    ("blind_rotate_fused_packed", "blind_rotate_fused_packed", SOURCE_SMALL,
+     "tfhe_tpu/ops/cmux_pallas_packed.py:283"),
+    ("keyswitch", "keyswitch", SOURCE, "tfhe_tpu/ops/cmux_pallas.py:398"),
+)
+# kernels no path of the port launches (nor of tfhe_tpu's bootstrap): built,
+# held against their plain versions and timed all the same
+OFF_PATH = (
+    ("blind_rotate_step", "blind_rotate_step", SOURCE, "tfhe_tpu/ops/cmux_pallas.py:321"),
+    ("cmux_delta", "cmux_delta", SOURCE, "tfhe_tpu/ops/cmux_pallas.py:584"),
+)
+
+
+def kernels_line(paths: dict, timed: dict) -> str:
+    """The JSON line of the path's kernels: launches and samples by path
+    (`paths`: each path's counts), then `timed[name]`; fails if a kernel of
+    the path was launched on no path, or an off-path kernel on one."""
     def counted(counter: str) -> dict:
         by_path = {path: c["launches"].get(counter, 0) for path, c in paths.items()}
         samples = {path: c["samples"].get(counter, 0) for path, c in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
                 "samples": sum(samples.values()), "samples_by_path": samples}
 
-    def on_paths(counter: str) -> dict:
+    kernels, off_path = [], []
+    for name, counter, source, replaces in ON_PATH:
         out = counted(counter)
         if out["launches"] < 1:
             raise AssertionError(f"no path launched {counter}")
-        return out
-
-    def off_paths(counter: str) -> dict:
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        **out, **timed[name]})
+    for name, counter, source, replaces in OFF_PATH:
         out = counted(counter)
         if out["launches"] != 0:
             raise AssertionError(f"{counter} is listed as off every path, but the paths "
                                  f"launched it: {out['launches_by_path']}")
-        return out
-
-    kernels = [
-        {"name": "blind_rotate", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:555", **on_paths("blind_rotate_fused"),
-         **timed["blind_rotate"]},
-        {"name": "blind_rotate_ks", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:505", **on_paths("blind_rotate_ks_fused"),
-         **timed["blind_rotate_ks"]},
-        {"name": "blind_rotate_fused_packed", "route": "cuda", "source": SOURCE_SMALL,
-         "replaces": "tfhe_tpu/ops/cmux_pallas_packed.py:283",
-         **on_paths("blind_rotate_fused_packed"), **timed["blind_rotate_fused_packed"]},
-        {"name": "keyswitch", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:398", **on_paths("keyswitch"),
-         **timed["keyswitch"]},
-    ]
-    # kernels no path of the port launches (nor of tfhe_tpu's bootstrap): built,
-    # held against their plain versions and timed all the same
-    off_path = [
-        {"name": "blind_rotate_step", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:321", **off_paths("blind_rotate_step"),
-         **timed["blind_rotate_step"]},
-        {"name": "cmux_delta", "route": "cuda", "source": SOURCE,
-         "replaces": "tfhe_tpu/ops/cmux_pallas.py:584", **off_paths("cmux_delta"),
-         **timed["cmux_delta"]},
-    ]
-    log(json.dumps({"kernels": kernels, "off_path": off_path}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
-                                           "count": torch.cuda.device_count()}}))
-    return 0
-
+        off_path.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                         **out, **timed[name]})
+    return json.dumps({"kernels": kernels, "off_path": off_path})
 
 if __name__ == "__main__":
     sys.exit(main())

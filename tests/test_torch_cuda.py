@@ -417,3 +417,45 @@ def test_plan_evicted_before_the_capture_is_still_captured(small_sk, monkeypatch
         eager_x, eager_y = arith.mul(*xs, sk.cloud), arith.mul(*ys, sk.cloud)
     torch.cuda.synchronize()
     assert _same(captured, eager_x) and _same(replayed, eager_y)
+
+
+# ---------------------------------------------------------------- four cards
+
+NCCL_WORLD = 4
+
+
+def _nccl_and_rank(rank, world, device, bits):
+    """One rank of the NCCL test: keys and inputs made on this card from one
+    seed (the same on every card), the sharded AND over the world, and this
+    card's one-process AND of the same inputs."""
+    import torch.distributed as dist
+    from tfhe_tpu_torch.parallel.mesh import make_mesh, sharded_gate2
+    sk = tt.keygen(tt.PARAMS_SMALL, seed=(8, 4, 4), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(44)
+    x, y = (tt.encrypt_bits(sk, b, gen, device) for b in bits)
+    out = sharded_gate2("AND", x, y, sk.cloud, make_mesh(world, device=device))
+    one = gates.AND(x, y, sk.cloud)
+    return {"backend": dist.get_backend(), "device": str(device),
+            "out": tuple(v.cpu().numpy() for v in (out.a, out.b, out.cv)),
+            "one": tuple(v.cpu().numpy() for v in (one.a, one.b, one.cv)),
+            "bits": tt.decrypt_bits(sk, out)}
+
+
+def test_dp_and_over_nccl_on_four_cards(cuda):
+    """DP AND at world 4 with one rank a card: every rank runs NCCL on
+    cuda:rank, returns the same bytes, equal to its card's one-process AND
+    (a, b exact, cv to rtol 1e-6), decrypting to a & b."""
+    if torch.cuda.device_count() < NCCL_WORLD:
+        pytest.skip(f"needs {NCCL_WORLD} cards, one a rank")
+    from tfhe_tpu_torch.parallel import dryrun
+    bits = np.random.RandomState(4).randint(0, 2, size=(2, 16 * NCCL_WORLD)).astype(np.int32)
+    outs = dryrun.run(NCCL_WORLD, _nccl_and_rank, bits)
+    for r, o in enumerate(outs):
+        assert (o["backend"], o["device"]) == ("nccl", f"cuda:{r}")
+        for got, want in zip(o["out"], outs[0]["out"]):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(o["out"][0], o["one"][0])
+        np.testing.assert_array_equal(o["out"][1], o["one"][1])
+        np.testing.assert_allclose(o["out"][2], o["one"][2], rtol=1e-6)
+        np.testing.assert_array_equal(o["bits"], bits[0] & bits[1])

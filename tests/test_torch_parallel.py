@@ -5,17 +5,21 @@ each, a file rendezvous in a fresh temporary directory, so that concurrent
 test workers never share a port), PARAMS_TOY keys carried in as raw numpy.
 Every rank returns the whole result; each must be byte-equal (a, b exact, cv to rtol 1e-6) to
 the same computation in one process and to tfhe_tpu's sharded entry points
-on the 8-device virtual mesh of tests/conftest.py.
+on the 8-device virtual mesh of tests/conftest.py. The ranks also run the
+row-sharded matmul of chip_smoke.py's four-card phase (chip_smoke.matmul_rows
+through sharded_circuit) and the collectives alone.
 
 The rank function lives in this module, which imports nothing of JAX at its
 top: a spawned rank imports it by name and must stay free of JAX.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import tfhe_tpu_torch as pt
-from tfhe_tpu_torch import arith, gates
+from tfhe_tpu_torch import arith, gates, linalg
 from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core import keys
 from tfhe_tpu_torch.core.lwe import LweCiphertext
@@ -26,6 +30,8 @@ WORLD = 4
 B = 16              # the gate batch: divides over 4 ranks and over tfhe_tpu's 8 devices
 CANNON_A = np.array([[1, 2], [0, 3]], np.int64)
 CANNON_B = np.array([[2, 1], [1, 1]], np.int64)
+ROWS_A = np.array([[3, 1], [0, 2], [1, 1], [2, 3]], np.int64)    # 4 x 2: a row a rank
+ROWS_B = np.array([[1, 2], [3, 0]], np.int64)                    # 2 x 2, replicated
 
 
 def _cloud(raw, device):
@@ -41,25 +47,36 @@ def _np(ct: LweCiphertext) -> tuple:
 
 
 def _ranks(rank, world, device, raw, inputs):
-    """On each rank: every sharded entry point of the port on the same inputs."""
+    """On each rank: every sharded entry point of the port on the same inputs,
+    the row-sharded matmul, the collectives alone, and the rank's
+    NCCL_SOCKET_IFNAME."""
+    import chip_smoke
+    from tfhe_tpu_torch.core.lwe import lwe_stack
+    from tfhe_tpu_torch.parallel import mesh as pm
     from tfhe_tpu_torch.parallel.cannon import cannon_matmul_mesh, make_mesh2d
-    from tfhe_tpu_torch.parallel.mesh import (make_mesh, make_mesh2d_dp_ks,
-                                              sharded_bootstrap_step, sharded_circuit,
-                                              sharded_gate2, sharded_gate2_tp_ks)
     cloud = _cloud(raw, device)
     ct = {k: _lwe(v, device) for k, v in inputs.items()}
-    mesh, dpks, grid = (make_mesh(world, device=device), make_mesh2d_dp_ks(2, 2, device=device),
-                        make_mesh2d(2, device=device))
+    mesh, dpks, grid = (pm.make_mesh(world, device=device),
+                        pm.make_mesh2d_dp_ks(2, 2, device=device), make_mesh2d(2, device=device))
     out = {
-        "and": sharded_gate2("AND", ct["x"], ct["y"], cloud, mesh),
-        "tp_xor": sharded_gate2_tp_ks("XOR", ct["x"], ct["y"], cloud, dpks),
-        "tp_and": sharded_gate2_tp_ks("AND", ct["x"], ct["y"], cloud, dpks),
-        "boot": sharded_bootstrap_step(ct["x"], cloud, mesh),
-        "mul4": sharded_circuit(arith.mul, (ct["m4a"], ct["m4b"]), cloud, mesh),
-        "mul8": sharded_circuit(arith.mul, (ct["m8a"], ct["m8b"]), cloud, mesh),
+        "and": pm.sharded_gate2("AND", ct["x"], ct["y"], cloud, mesh),
+        "tp_xor": pm.sharded_gate2_tp_ks("XOR", ct["x"], ct["y"], cloud, dpks),
+        "tp_and": pm.sharded_gate2_tp_ks("AND", ct["x"], ct["y"], cloud, dpks),
+        "boot": pm.sharded_bootstrap_step(ct["x"], cloud, mesh),
+        "mul4": pm.sharded_circuit(arith.mul, (ct["m4a"], ct["m4b"]), cloud, mesh),
+        "mul8": pm.sharded_circuit(arith.mul, (ct["m8a"], ct["m8b"]), cloud, mesh),
         "cannon": cannon_matmul_mesh(ct["ca"], ct["cb"], cloud, grid),
+        "matmul_rows": pm.sharded_circuit(chip_smoke.matmul_rows,
+                                          (ct["ra"], lwe_stack([ct["rb"]] * world)), cloud, mesh),
     }
-    return {k: _np(v) for k, v in out.items()}
+    mine = torch.arange(6, dtype=torch.int32).reshape(2, 3) + 100 * rank
+    coll = {"backend": mesh.backend,
+            "gather": pm.all_gather_cat(mine, mesh.group, world, mesh).numpy(),
+            "reduce": pm.all_reduce_sum(mine.clone(), mesh.group, mesh).numpy(),
+            "cv": pm.all_gather_cat(torch.full((2,), 0.5 + rank), mesh.group, world,
+                                    mesh).numpy()}
+    return {**{k: _np(v) for k, v in out.items()}, "coll": coll,
+            "ifname": os.environ.get("NCCL_SOCKET_IFNAME")}
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +96,9 @@ def run(toy_keys):
            "m8a": ja.encrypt_int(toy_keys, m8[0], 8, seed=73),
            "m8b": ja.encrypt_int(toy_keys, m8[1], 8, seed=74),
            "ca": ja.encrypt_int(toy_keys, CANNON_A, 4, seed=63),
-           "cb": ja.encrypt_int(toy_keys, CANNON_B, 4, seed=64)}
+           "cb": ja.encrypt_int(toy_keys, CANNON_B, 4, seed=64),
+           "ra": ja.encrypt_int(toy_keys, ROWS_A, 4, seed=65),
+           "rb": ja.encrypt_int(toy_keys, ROWS_B, 4, seed=66)}
     raw = {k: np.asarray(getattr(toy_keys, k)) for k in ("bk_raw", "ks_a", "ks_b")}
     inputs = {k: tuple(np.asarray(v) for v in (c.a, c.b, c.cv)) for k, c in jin.items()}
     outs = dryrun.run(WORLD, _ranks, raw, inputs, device="cpu", threads=1)
@@ -101,7 +120,8 @@ def _port(jct) -> LweCiphertext:
     return _lwe((jct.a, jct.b, jct.cv))
 
 
-@pytest.mark.parametrize("key", ["and", "tp_xor", "tp_and", "boot", "mul4", "mul8", "cannon"])
+@pytest.mark.parametrize("key", ["and", "tp_xor", "tp_and", "boot", "mul4", "mul8", "cannon",
+                                 "matmul_rows"])
 def test_every_rank_returns_the_same_result(run, key):
     outs = run[-1]
     for r in range(1, WORLD):
@@ -172,6 +192,94 @@ def test_cannon_matches_one_process_and_numpy(run):
     got = outs[0]["cannon"]
     _same(got, _cannon_one_process(_port(jin["ca"]), _port(jin["cb"]), psk.cloud))
     np.testing.assert_array_equal(arith.decrypt_int(psk, _lwe(got)), CANNON_A @ CANNON_B)
+
+
+def test_row_sharded_matmul_matches_one_process_and_tfhe_tpu(run):
+    """a's rows over the ranks, b replicated (a copy a rank stacked on a new
+    leading axis), chip_smoke.matmul_rows through sharded_circuit: the
+    one-process linalg.matmul of the port and of tfhe_tpu, byte for byte."""
+    from tfhe_tpu import linalg as jl
+    jsk, psk, jin, vals, outs = run
+    got = outs[0]["matmul_rows"]
+    _same(got, linalg.matmul(_port(jin["ra"]), _port(jin["rb"]), psk.cloud))
+    _same(got, jl.matmul(jin["ra"], jin["rb"], jsk.cloud))
+    np.testing.assert_array_equal(arith.decrypt_int(psk, _lwe(got), signed=False),
+                                  (ROWS_A @ ROWS_B) % 16)
+
+
+def test_collectives_gather_and_sum_the_ranks_tensors(run):
+    """On the gloo ranks, all_gather_cat (one buffer, the form NCCL takes
+    too) gives the ranks' tensors in rank order, int32 and float32, and
+    all_reduce_sum their sum."""
+    want = np.concatenate([np.arange(6, dtype=np.int32).reshape(2, 3) + 100 * r
+                           for r in range(WORLD)])
+    for r, out in enumerate(run[-1]):
+        coll = out["coll"]
+        assert coll["backend"] == "gloo"
+        np.testing.assert_array_equal(coll["gather"], want)
+        np.testing.assert_array_equal(coll["reduce"], want.reshape(WORLD, 2, 3).sum(0))
+        np.testing.assert_array_equal(coll["cv"], np.repeat(0.5 + np.arange(WORLD), 2))
+
+
+class _CardTensor:
+    """A stand-in for a contiguous CUDA tensor: it records a copy to the host."""
+    device = torch.device("cuda", 0)
+
+    def __init__(self):
+        self.to_host = 0
+
+    def cpu(self):
+        self.to_host += 1
+        return self
+
+    def contiguous(self):
+        return self
+
+
+def test_nccl_with_a_card_a_rank_and_no_host_copy(monkeypatch):
+    """With four cards visible, four ranks on cuda devices take NCCL; more
+    ranks than cards, or the CPU, take gloo. Under NCCL a collective takes
+    the card's tensor itself; under gloo it goes through the host."""
+    from tfhe_tpu_torch.parallel import mesh as pm
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert pm.pick_backend(torch.device("cuda", 3), 4) == "nccl"
+    assert pm.pick_backend(torch.device("cuda", 0), 8) == "gloo"
+    assert pm.pick_backend(torch.device("cpu"), 4) == "gloo"
+    on_card = pm.Mesh(shape=(4,), axis_names=("dp",), ranks=(0, 1, 2, 3), coords=(0,),
+                      device=torch.device("cuda", 0), backend="nccl")
+    t = _CardTensor()
+    assert pm._host(t, on_card) is t and t.to_host == 0
+    shared = pm.Mesh(shape=(4,), axis_names=("dp",), ranks=(0, 1, 2, 3), coords=(0,),
+                     device=torch.device("cuda", 0), backend="gloo")
+    pm._host(t, shared)
+    assert t.to_host == 1
+
+
+def test_ranks_name_the_loopback_only_where_unset(run):
+    """A rank sets NCCL_SOCKET_IFNAME=lo where its environment has none, and
+    keeps an interface the environment names."""
+    env = {}
+    dryrun.rank_environ(env)
+    assert env == {"NCCL_SOCKET_IFNAME": "lo"}
+    env = {"NCCL_SOCKET_IFNAME": "eth7"}
+    dryrun.rank_environ(env)
+    assert env == {"NCCL_SOCKET_IFNAME": "eth7"}
+    want = os.environ.get("NCCL_SOCKET_IFNAME", "lo")
+    assert [out["ifname"] for out in run[-1]] == [want] * WORLD
+
+
+def test_chip_smoke_refuses_more_cards_than_visible(monkeypatch):
+    """--cards 4 is refused where fewer cards are visible, before any phase;
+    the default is one card; no count other than 1 and 4 is taken."""
+    import chip_smoke
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--cards", "4"])
+    assert chip_smoke.parse_args([]).cards == 1
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert chip_smoke.parse_args(["--cards", "4"]).cards == 4
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--cards", "2"])
 
 
 @pytest.mark.slow

@@ -20,6 +20,11 @@ The ranks run on the card unless ``--device cpu`` is given: with one card a
 rank, over NCCL; several ranks sharing a card, or the CPU, over gloo (see
 ``mesh``). A rank that raises fails the run. N ranks sharing one card give a
 correctness check of the sharded entry points, not a scaling number.
+
+NCCL's bootstrap finds its peers over a socket. Unless the environment names
+an interface, the ranks name the loopback (``NCCL_SOCKET_IFNAME=lo``): the
+ranks of one host need no network, and a host without one has no other
+interface to offer.
 """
 from __future__ import annotations
 
@@ -35,16 +40,24 @@ import torch
 SEED = (314, 1592, 657)
 
 
+def rank_environ(env) -> None:
+    """The environment a spawned rank adds: NCCL's bootstrap on the loopback
+    where `env` names no interface (an interface it names stays)."""
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+
+
 def _rank_main(rank: int, world: int, tmp: str, device, threads, fn, args) -> None:
     import torch.distributed as dist
     from .mesh import init_process
+    rank_environ(os.environ)
     torch.set_num_threads(threads)
     dev = init_process(rank, world, "file://" + os.path.join(tmp, "rendezvous"), device)
     try:
         out = fn(rank, world, dev, *args)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
-        dist.barrier()
+        # under NCCL the barrier runs on this rank's card, named, not guessed
+        dist.barrier(device_ids=[dev.index] if dist.get_backend() == "nccl" else None)
     finally:
         dist.destroy_process_group()
 
@@ -54,7 +67,9 @@ def run(world: int, fn, *args, device=None, threads: int | None = None) -> list:
     joined into one process group; returns the ranks' results in rank order.
     fn must be importable by name (a module-level function) and its results
     picklable. threads: torch threads a rank (default: the cores over the
-    ranks). An exception in any rank raises here."""
+    ranks). An exception in any rank raises here. Each rank sets
+    NCCL_SOCKET_IFNAME=lo where the environment leaves it unset
+    (``rank_environ``)."""
     import torch.multiprocessing as mp
     threads = threads or max(1, (os.cpu_count() or 1) // world)
     with tempfile.TemporaryDirectory(prefix="tfhe_tpu_torch_dryrun_") as tmp:
@@ -108,7 +123,8 @@ def dryrun_multichip(rank: int, world: int, device, shapes=(1, 2, 3, 4, 5, 6)) -
     if 1 in shapes:
         out = sharded_gate2("AND", ca, cb, sk.cloud, mesh)
         _expect(tt.decrypt_bits(sk, out), a & b, "1-D DP AND")
-        lines.append(f"dryrun[1/6] 1-D DP AND over {n} ranks, batch {batch}: values OK")
+        lines.append(f"dryrun[1/6] 1-D DP AND over {n} ranks ({mesh.backend} on "
+                     f"{mesh.device}), batch {batch}: values OK")
     if 2 in shapes:
         if mesh2 is None:
             lines.append("dryrun[2/6] skipped (needs a world divisible by 2)")

@@ -16,11 +16,15 @@ Axes:
       contracts its row block, and one all-reduce sums the partial key switches.
 
 Each rank runs on the card unless the caller asks for the CPU (``rank_device``).
-The backend follows where the ranks live (``pick_backend``): NCCL when each
-rank has a card of its own, gloo otherwise (the CPU, or several ranks sharing
-one card; NCCL refuses two ranks on one device). gloo's collectives take CPU
-tensors, so under gloo the helpers below copy through the host; the
-computation stays on the rank's device.
+The backend follows where the ranks live (``pick_backend``), and ``Mesh.backend``
+is the one that ran:
+  NCCL  one rank a card (rank r on card r, as on a host of four H100s joined
+        by NVLink): every collective and every ring shift runs on the cards,
+        and nothing goes through the host;
+  gloo  the CPU, or several ranks sharing one card (NCCL refuses two ranks on
+        one device): gloo's collectives take CPU tensors, so the helpers below
+        copy a CUDA tensor through the host; the computation stays on the
+        rank's device.
 """
 from __future__ import annotations
 
@@ -152,20 +156,28 @@ def make_mesh2d_dp_ks(dp: int, ks: int, device=None) -> Mesh:
 
 def _host(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The tensor a collective takes: gloo's take CPU tensors, so a CUDA
-    tensor goes through the host there."""
+    tensor goes through the host there; NCCL's take the tensor itself."""
     return t.cpu() if mesh.backend == "gloo" and t.device.type == "cuda" else t.contiguous()
+
+
+# the single-buffer all-gather: all_gather_single where the release has it;
+# releases before it (torch 2.11) have only all_gather_into_tensor, which
+# later ones deprecate in its favour
+_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 def all_gather_cat(t: torch.Tensor, group, size: int, mesh: Mesh) -> torch.Tensor:
     """Concatenate along dim 0 the tensors of the `size` ranks of `group`,
-    in rank order (every rank's tensor has the same shape)."""
+    in rank order (every rank's tensor has the same shape), gathered into
+    one new buffer."""
     h = _host(t, mesh)
-    parts = [torch.empty_like(h) for _ in range(size)]
-    dist.all_gather(parts, h, group=group)
-    return torch.cat(parts).to(t.device)
+    out = h.new_empty((size * h.shape[0],) + tuple(h.shape[1:]))
+    _gather_single(out, h, group=group)
+    return out.to(t.device)
 
 
 def all_reduce_sum(t: torch.Tensor, group, mesh: Mesh) -> torch.Tensor:
+    """The sum over the ranks of `group`, in place on the card under NCCL."""
     h = _host(t, mesh)
     dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
     return h.to(t.device)
