@@ -221,6 +221,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(prof) -> list:
+    """The kernels and copies of a torch.profiler trace. The program's spans
+    (``utils.profiling.span``, entered as record_function while a profiler
+    records) are mirrored on the device's timeline as user annotations, from
+    their first kernel to their last: they are no device work."""
+    return [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+
+
 def kernel_device_ms(fn, needle: str, reps: int = 10):
     """Mean device time in ms of the kernels whose name contains `needle`,
     over `reps` calls of fn() under torch.profiler: what the kernel takes when
@@ -233,8 +242,8 @@ def kernel_device_ms(fn, needle: str, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA and needle in ev.name]
+    spans = [ev.time_range.end - ev.time_range.start for ev in device_events(prof)
+             if needle in ev.name]
     return sum(spans) / reps / 1e3 if len(spans) == reps else None
 
 
@@ -2511,10 +2520,9 @@ def phase_profile(label: str, fn, smi: str, tag: str = "profile") -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
         trace_bytes = os.path.getsize(os.path.join(d, "trace.json"))
     spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((ev.time_range.start, ev.time_range.end))
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + (ev.time_range.end - ev.time_range.start)
+    for ev in device_events(prof):
+        spans.append((ev.time_range.start, ev.time_range.end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (ev.time_range.end - ev.time_range.start)
     if not spans:
         log(f"[{tag}] {label}: torch.profiler recorded no device event: idle share not measured")
         return

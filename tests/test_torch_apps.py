@@ -105,8 +105,7 @@ def test_app_without_device_needs_the_card(tmp_path, monkeypatch, app, argv):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """timed() warms up, then gives seconds per call and the last result;
-    PhaseTimer sums and counts a phase entered twice and reports it;
+    """PhaseTimer sums and counts a phase entered twice and reports it;
     device_trace writes a Chrome trace that holds the body's ops."""
     calls = []
 
@@ -115,14 +114,13 @@ def test_profiling_on_the_cpu(tmp_path):
         return x @ x
 
     x = torch.eye(3)
-    per_call, out = profiling.timed(fn, x, device="cpu", iters=4, warmup=2)
-    assert len(calls) == 6 and per_call > 0 and torch.equal(out, x)
     timer = profiling.PhaseTimer("cpu")
     for _ in range(2):
         with timer.phase("product"):
             fn(x)
     with pytest.raises(ZeroDivisionError), timer.phase("fails"):
         1 / 0
+    assert len(calls) == 2
     assert timer.counts == {"product": 2, "fails": 1} and timer.totals["product"] > 0
     assert [line.split()[0] for line in timer.report().splitlines()] == sorted(
         timer.totals, key=lambda name: -timer.totals[name])

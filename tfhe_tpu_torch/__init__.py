@@ -22,7 +22,9 @@ Layer map (the module names follow ``tfhe_tpu``):
   apps            -> tfhe_tpu_torch.apps (alice, cloud, verify, cli, linreg; on
                      the card unless given --device cpu)
   noise model     -> tfhe_tpu_torch.utils.phasesim
-  timing          -> tfhe_tpu_torch.utils.profiling (CUDA events, torch.profiler)
+  timing, spans   -> tfhe_tpu_torch.utils.profiling (PhaseTimer: CUDA events;
+                     device_trace: torch.profiler; span and spans: the
+                     program's spans, kept while a profiler records)
 """
 
 from .params import TfheParams, PARAMS_110, PARAMS_TOY, PARAMS_SMALL, PARAMS_SMALL_NOISY

@@ -29,6 +29,7 @@ from __future__ import annotations
 import collections
 import functools
 import threading
+import time
 import weakref
 from dataclasses import dataclass
 
@@ -42,6 +43,7 @@ from .core.lwe import LweCiphertext, keeping, lwe_concat, lwe_stack, lwe_take
 from .ops import cmux
 from .numeric import wrap_i32
 from .params import TfheParams
+from .utils.profiling import NO_SPAN, span
 
 _1_8 = gates._1_8
 
@@ -196,7 +198,9 @@ class CircuitGraphs:
     a first call. Calls are serialised by a lock; the replays of one graph are
     ordered on the stream of their calls. `counts` tallies the calls by what
     they did: first, eager (before the capture), capture, replay, and
-    over_rule (eager, over CAPTURE_MAX_BATCH; counted by ``circuit``)."""
+    over_rule (eager, over CAPTURE_MAX_BATCH; counted by ``circuit``).
+    `seconds` sums the host seconds of the first, eager and capture calls
+    (a capture's with its first replay); replays are not timed."""
 
     def __init__(self, graph=CudaGraph, max_graphs: int = GRAPH_MAX,
                  eager_calls: int = CAPTURE_AFTER):
@@ -206,6 +210,7 @@ class CircuitGraphs:
         self.eager_calls = eager_calls
         self.entries: collections.OrderedDict = collections.OrderedDict()
         self.counts = collections.Counter()
+        self.seconds = collections.Counter()
         self.lock = threading.Lock()
 
     def graphs(self) -> int:
@@ -216,10 +221,13 @@ class CircuitGraphs:
         """The device memory the held graphs' pools reserve."""
         return sum(e.graph.pool_bytes for e in self.entries.values() if e.graph is not None)
 
-    def call(self, f, args: tuple, key: tuple, by_id: list, device: torch.device):
+    def call(self, f, args: tuple, key: tuple, by_id: list, device: torch.device,
+             sp=NO_SPAN):
         """f(*args) through the graph of `key`; `by_id` are the arguments the
-        key names by identity (the cloud key), which a graph holds."""
+        key names by identity (the cloud key), which a graph holds. The mode
+        of the call is set on `sp`, the caller's span."""
         with self.lock:
+            t0 = time.perf_counter()
             entry = self.entries.get(key)
             if entry is not None and entry.graph is None and not all(
                     r() is a for r, a in zip(entry.refs, by_id)):
@@ -233,14 +241,23 @@ class CircuitGraphs:
             if entry.graph is None and entry.calls < self.eager_calls:
                 entry.calls += 1
                 self.counts["eager"] += entry.calls > 1
-                with keeping(entry.held):
-                    return f(*args)
-            if entry.graph is None:
-                entry = self._capture(f, args, key, entry, tuple(by_id), device)
-                self.counts["capture"] += 1
-            else:
+                mode = "first" if entry.calls == 1 else "eager"
+                sp.set(mode=mode)
+                try:
+                    with keeping(entry.held):
+                        return f(*args)
+                finally:
+                    self.seconds[mode] += time.perf_counter() - t0
+            if entry.graph is not None:
                 self.counts["replay"] += 1
-            return self._replay(entry, args)
+                sp.set(mode="replay")
+                return self._replay(entry, args)
+            sp.set(mode="capture")
+            entry = self._capture(f, args, key, entry, tuple(by_id), device)
+            self.counts["capture"] += 1
+            out = self._replay(entry, args)
+            self.seconds["capture"] += time.perf_counter() - t0
+            return out
 
     def _remember(self, key: tuple, entry: _Entry) -> None:
         self.entries[key] = entry
@@ -255,7 +272,7 @@ class CircuitGraphs:
         graph = self.graph(device)
         launches, samples = dict(cmux.LAUNCHES), dict(cmux.SAMPLES)
         try:
-            with keeping(warm.held):
+            with span("tfhe.circuit.capture"), keeping(warm.held):
                 out = graph.capture(lambda: f(*static))
         except BaseException:
             del self.entries[key]             # the next call is a first call: eager, a warm-up
@@ -277,7 +294,8 @@ class CircuitGraphs:
                 s.a.copy_(a.a)
                 s.b.copy_(a.b)
                 s.cv.copy_(a.cv)
-        entry.graph.replay()
+        with span("tfhe.circuit.launch"):
+            entry.graph.replay()
         for k, v in entry.launches.items():
             cmux.LAUNCHES[k] += v
             cmux.SAMPLES[k] += entry.samples[k]
@@ -312,21 +330,22 @@ def circuit_key(f, args: tuple, static_argnums, device: torch.device):
 
 
 def _graph_device(args: tuple):
-    """The device a call is captured on, or None when it runs eagerly: no
-    ciphertext argument, tensors the graphs cannot hold (CPU tensors: a CUDA
-    graph has no CPU meaning), the flag off (``config.circuit_jit_enabled``),
-    or more than CAPTURE_MAX_BATCH samples in its ciphertexts (counted in
+    """(device, None): the device a call is captured on; or (None, why) when
+    it runs eagerly, why "off" (no ciphertext argument, tensors the graphs
+    cannot hold: CPU tensors, for a CUDA graph has no CPU meaning; the flag
+    off, ``config.circuit_jit_enabled``) or "over_rule" (more than
+    CAPTURE_MAX_BATCH samples in its ciphertexts; counted in
     ``GRAPHS.counts["over_rule"]``)."""
     cts = [a for a in args if isinstance(a, LweCiphertext)]
     if not cts:
-        return None
+        return None, "off"
     device = cts[0].device
     if device.type != GRAPHS.device_type or not circuit_jit_enabled(device):
-        return None
+        return None, "off"
     if sum(c.b.numel() for c in cts) > CAPTURE_MAX_BATCH:
         GRAPHS.counts["over_rule"] += 1
-        return None
-    return device
+        return None, "over_rule"
+    return device, None
 
 
 def circuit(fn=None, *, static_argnums=()):
@@ -344,7 +363,9 @@ def circuit(fn=None, *, static_argnums=()):
     calls over the capture rule (CAPTURE_MAX_BATCH). None of these changes a
     bit of the result. `static_argnums` name the positional arguments that are
     Python numbers, keyed by value (``mul_plain``'s constant, ``mul_full``'s
-    width)."""
+    width). An outer call is the span ``tfhe.circuit``, with the circuit's
+    name and its mode: first, eager, capture, replay (``CircuitGraphs``),
+    over_rule or off (eager, as ``_graph_device`` says)."""
     static = frozenset(static_argnums)
 
     def deco(f):
@@ -354,11 +375,13 @@ def circuit(fn=None, *, static_argnums=()):
                 return f(*args, **kwargs)
             _INSIDE.depth = 1
             try:
-                device = None if kwargs else _graph_device(args)
-                if device is None:
-                    return f(*args, **kwargs)
-                key, by_id = circuit_key(f, args, static, device)
-                return GRAPHS.call(f, args, key, by_id, device)
+                with span("tfhe.circuit", circuit=f.__qualname__) as sp:
+                    device, why = (None, "off") if kwargs else _graph_device(args)
+                    if device is None:
+                        sp.set(mode=why)
+                        return f(*args, **kwargs)
+                    key, by_id = circuit_key(f, args, static, device)
+                    return GRAPHS.call(f, args, key, by_id, device, sp)
             finally:
                 _INSIDE.depth = 0
         return wrapper

@@ -35,6 +35,7 @@ from .. import ntt
 from ..config import fuseks_enabled
 from ..numeric import i32, mod_switch_from_torus32
 from ..ops import cmux, cmux_packed
+from ..utils.profiling import span, spanned
 from .lwe import LweCiphertext
 
 # Which blind rotate a flat batch takes. Measured on an H100 (132 SMs, 700 W)
@@ -196,6 +197,7 @@ def ks_finalize(sums: torch.Tensor, b_ext: torch.Tensor, cv: torch.Tensor,
     return LweCiphertext(-r[:, :n], b_ext - r[:, n], cv_out.expand(b_ext.shape))
 
 
+@spanned("tfhe.bootstrap.finish")
 def key_switch(a_ext: torch.Tensor, b_ext: torch.Tensor, ks_table: torch.Tensor,
                cv: torch.Tensor, params: TfheParams) -> LweCiphertext:
     """Key switch as one one-hot int8 matmul against the limb table:
@@ -207,6 +209,7 @@ def key_switch(a_ext: torch.Tensor, b_ext: torch.Tensor, ks_table: torch.Tensor,
 
 # ------------------------------------------------------------------ pipeline
 
+@spanned("tfhe.bootstrap.prepare_acc")
 def _prepare_acc(x: LweCiphertext, mu, cloud):
     """Mod switch and the rotated test-vector accumulator (shared by both routes).
 
@@ -240,8 +243,16 @@ def _bootstrap_variance(params: TfheParams) -> float:
     return float(n * ((k + 1) * l * N * (Bg / 2.0) ** 2 * var_bk + (1 + k * N) * eps2))
 
 
-def _small(x: LweCiphertext, params: TfheParams) -> bool:
-    return params.N <= cmux_packed.N_MAX and small_batch(x.b.shape[0])
+def _small(B: int, params: TfheParams) -> bool:
+    return params.N <= cmux_packed.N_MAX and small_batch(B)
+
+
+def _route(B: int, params: TfheParams, fused: bool) -> str:
+    """The blind rotate a flat batch of B takes, as a bootstrap's span names
+    it: K4 or K5 with the key switch in the same wrapper, K3 or K5 without."""
+    if fused:
+        return "k5" if _small(B, params) else "k4"
+    return "k5_woks" if _small(B, params) else "k3"
 
 
 # ------------------------------------------------------------------ chunks
@@ -281,21 +292,27 @@ def batch_cap(device: torch.device, cloud) -> int:
     return _card_cap(index, key_bytes, cloud.params.N)
 
 
-def _chunked(impl, x: LweCiphertext, mu, cloud):
+def _chunked(impl, x: LweCiphertext, mu, cloud, woks: bool = False):
     """impl(x, mu, cloud) over equal chunks of batch_cap() samples and a
     remainder, outputs concatenated (an LweCiphertext, or a tuple of tensors).
-    A per-sample mu is split with the samples."""
+    A per-sample mu is split with the samples. The span ``tfhe.bootstrap``
+    names the route of the first chunk (`woks`: impl stops before the key
+    switch), the batch and the chunks."""
     B = x.b.shape[0]
     cap = batch_cap(x.device, cloud)
-    if B <= cap:
-        return impl(x, mu, cloud)
-    per_sample = isinstance(mu, torch.Tensor) and mu.dim() > 0 and mu.shape[0] == B
-    parts = [impl(x[s:s + cap], mu[s:s + cap] if per_sample else mu, cloud)
-             for s in range(0, B, cap)]
-    if isinstance(parts[0], LweCiphertext):
-        return LweCiphertext(*(torch.cat([getattr(p, f) for p in parts])
-                               for f in ("a", "b", "cv")))
-    return tuple(torch.cat(vs) for vs in zip(*parts))
+    with span("tfhe.bootstrap") as sp:
+        if sp:
+            fused = not woks and _fused(x, cloud)
+            sp.set(route=_route(min(B, cap), cloud.params, fused), batch=B, parts=-(-B // cap))
+        if B <= cap:
+            return impl(x, mu, cloud)
+        per_sample = isinstance(mu, torch.Tensor) and mu.dim() > 0 and mu.shape[0] == B
+        parts = [impl(x[s:s + cap], mu[s:s + cap] if per_sample else mu, cloud)
+                 for s in range(0, B, cap)]
+        if isinstance(parts[0], LweCiphertext):
+            return LweCiphertext(*(torch.cat([getattr(p, f) for p in parts])
+                                   for f in ("a", "b", "cv")))
+        return tuple(torch.cat(vs) for vs in zip(*parts))
 
 
 # ------------------------------------------------------------------ routes
@@ -306,14 +323,14 @@ def bootstrap_woks(x: LweCiphertext, mu, cloud):
 
     x: flat batch [B], split above batch_cap(). mu: int32 scalar or [B], the
     output message amplitude."""
-    return _chunked(_bootstrap_woks_whole, x, mu, cloud)
+    return _chunked(_bootstrap_woks_whole, x, mu, cloud, woks=True)
 
 
 def _bootstrap_woks_whole(x: LweCiphertext, mu, cloud):
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
     k1, B, N = params.k + 1, x.b.shape[0], params.N
-    if _small(x, params):
+    if _small(B, params):
         acc_p = acc.transpose(0, 1).reshape(k1 * B, N // cmux_packed.LANE, cmux_packed.LANE)
         out_p = cmux_packed.blind_rotate_fused_packed(acc_p, bara.T, cloud.bk_ntt,
                                                       cloud.bk_ntt_shoup, params)
@@ -327,6 +344,7 @@ def _bootstrap_woks_whole(x: LweCiphertext, mu, cloud):
     return a_ext, b_ext, cv
 
 
+@spanned("tfhe.bootstrap.finish")
 def finish_fused_ks(r: torch.Tensor, ext: torch.Tensor, params: TfheParams) -> LweCiphertext:
     """The sample from the fused kernel's outputs: r int32[B, C] (recombined
     key-switch sums) and ext int32[2, B] (b_ext, count of nonzero digits)."""
@@ -339,7 +357,7 @@ def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud) -> LweCiphertext:
     """bootstrap() through a blind rotate, extract and key switch in one wrapper."""
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
-    if _small(x, params):
+    if _small(x.b.shape[0], params):
         r, ext = cmux_packed.blind_rotate_packed_ks_fused(
             acc.permute(1, 2, 0), bara.T, cloud.bk_ntt, cloud.bk_ntt_shoup,
             cloud.ks_table_perm, params)
@@ -356,8 +374,12 @@ def bootstrap(x: LweCiphertext, mu, cloud) -> LweCiphertext:
     return _chunked(_bootstrap_whole, x, mu, cloud)
 
 
+def _fused(x: LweCiphertext, cloud) -> bool:
+    return fuseks_enabled(x.device) and cloud.params.k == 1
+
+
 def _bootstrap_whole(x: LweCiphertext, mu, cloud) -> LweCiphertext:
-    if fuseks_enabled(x.device) and cloud.params.k == 1:
+    if _fused(x, cloud):
         return _bootstrap_fused_ks(x, mu, cloud)
     a_ext, b_ext, cv = _bootstrap_woks_whole(x, mu, cloud)
     return key_switch(a_ext, b_ext, cloud.ks_table, cv, cloud.params)

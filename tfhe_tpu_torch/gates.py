@@ -19,6 +19,7 @@ import torch
 
 from .core.lwe import LweCiphertext, lwe_concat, lwe_negate, noiseless_trivial, plan_tensor
 from .core import bootstrap as bs
+from .utils.profiling import span
 
 # Torus constants (modSwitchToTorus32(x, Msize))
 _1_8 = 1 << 29   # modSwitchToTorus32(1, 8)
@@ -60,11 +61,12 @@ def _flat_batch(ct: LweCiphertext) -> int:
 def gate2(name: str, x: LweCiphertext, y: LweCiphertext, cloud,
           mu: int = MU) -> LweCiphertext:
     """Generic bootstrapped 2-input gate; batch shapes must match."""
-    const, ca, cb = GATE_TABLE[name]
     shape = x.batch_shape
     B = _flat_batch(x)
-    t = _affine2(x.reshape(B), y.reshape(B), const, ca, cb)
-    return bs.bootstrap(t, mu, cloud).reshape(shape)
+    with span("tfhe.gate2", kind=name, batch=B):
+        const, ca, cb = GATE_TABLE[name]
+        t = _affine2(x.reshape(B), y.reshape(B), const, ca, cb)
+        return bs.bootstrap(t, mu, cloud).reshape(shape)
 
 
 def gate2_pair(name1: str, name2: str, x1, y1, x2, y2, cloud):

@@ -5,7 +5,10 @@ kernel's array layouts at its interface, and dispatches on the device of its
 tensors: a CPU tensor takes the plain-torch version (``*_ref``, built from
 ``core.bootstrap``'s pieces); a CUDA tensor launches the hand-written kernel
 of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]`` and
-its batch to ``SAMPLES[name]``; a batch beyond ``max_batch`` is refused.
+its batch to ``SAMPLES[name]``; a batch beyond ``max_batch`` is refused. The
+host part of a wrapper on the bootstrap's path (K3, K4 and the key switch) on
+CUDA (checks, plans, the library call) is the span ``tfhe.kernel.<wrapper>``
+(``utils.profiling.span``).
 
 | wrapper                | TPU kernel it replaces                          |
 |------------------------|-------------------------------------------------|
@@ -41,6 +44,7 @@ import torch
 from .. import ntt
 from ..params import TfheParams
 from ..core import bootstrap as bs
+from ..utils.profiling import span
 from ._build import check, library
 
 # one count per TPU kernel replaced, and one for the key-switch kernel, which
@@ -322,14 +326,15 @@ def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.T
     `form`: as _launch_rotate."""
     if not _on_cuda(acc_t, bara, bk_rows, bksh_rows):
         return blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)
-    _check_params(params)
-    acc = _acc_rows(acc_t, params)
-    n = bara.shape[0]
-    _expect(bara, torch.int32, (n, acc.shape[0]), "bara")
-    _check_bk(bk_rows, bksh_rows, (n,), params)
-    _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params, form)
-    count_launch("blind_rotate_fused", acc.shape[0])
-    return acc.permute(1, 2, 0)
+    with span("tfhe.kernel.blind_rotate_fused", batch=acc_t.shape[-1]):
+        _check_params(params)
+        acc = _acc_rows(acc_t, params)
+        n = bara.shape[0]
+        _expect(bara, torch.int32, (n, acc.shape[0]), "bara")
+        _check_bk(bk_rows, bksh_rows, (n,), params)
+        _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params, form)
+        count_launch("blind_rotate_fused", acc.shape[0])
+        return acc.permute(1, 2, 0)
 
 
 # ------------------------------------------------------------------ key switch
@@ -382,8 +387,9 @@ def keyswitch(acc_t: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
     (r int32[B, C], ext int32[2, B]) as blind_rotate_ks_fused."""
     if not _on_cuda(acc_t, tks_lane):
         return keyswitch_ref(acc_t, tks_lane, params)
-    _check_params(params)
-    return _launch_keyswitch(_acc_rows(acc_t, params), tks_lane, params)
+    with span("tfhe.kernel.keyswitch", batch=acc_t.shape[-1]):
+        _check_params(params)
+        return _launch_keyswitch(_acc_rows(acc_t, params), tks_lane, params)
 
 
 def keyswitch_ref(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
@@ -421,25 +427,26 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
     digits). On CUDA: the blind-rotate kernel, then the key-switch kernel."""
     if not _on_cuda(acc_t, bara, bk_rows, bksh_rows, tks_lane):
         return blind_rotate_ks_fused_ref(acc_t, bara, bk_rows, bksh_rows, tks_lane, params)
-    _check_params(params)
-    acc = _acc_rows(acc_t, params)
-    B = acc.shape[0]
-    n = bara.shape[0]
-    _expect(bara, torch.int32, (n, B), "bara")
-    _check_bk(bk_rows, bksh_rows, (n,), params)
-    C = _check_tks(tks_lane, params)
-    bara_b = bara.T.contiguous()
-    mma, split = keyswitch_plan(B, params.N, C)
-    S, nbuf = blind_rotate_plan(params.N)
-    sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
-    r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
-    ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
-    tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
-    check(library().tfhe_blind_rotate_ks(
-        acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
-        tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
-        B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, C, params.ks_t,
-        params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
-    count_launch("blind_rotate_ks_fused", B)
-    count_launch("keyswitch", B)
-    return r, ext
+    with span("tfhe.kernel.blind_rotate_ks_fused", batch=acc_t.shape[-1]):
+        _check_params(params)
+        acc = _acc_rows(acc_t, params)
+        B = acc.shape[0]
+        n = bara.shape[0]
+        _expect(bara, torch.int32, (n, B), "bara")
+        _check_bk(bk_rows, bksh_rows, (n,), params)
+        C = _check_tks(tks_lane, params)
+        bara_b = bara.T.contiguous()
+        mma, split = keyswitch_plan(B, params.N, C)
+        S, nbuf = blind_rotate_plan(params.N)
+        sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
+        r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
+        ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+        tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
+        check(library().tfhe_blind_rotate_ks(
+            acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
+            tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
+            B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, C, params.ks_t,
+            params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
+        count_launch("blind_rotate_ks_fused", B)
+        count_launch("keyswitch", B)
+        return r, ext

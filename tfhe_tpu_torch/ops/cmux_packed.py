@@ -9,7 +9,8 @@ tensor launches ``csrc/blind_rotate_small.cu`` (one thread-block cluster of
 four or two CTAs per sample, ``small_cluster``) or raises. Each launch of that
 kernel adds one to ``cmux.LAUNCHES["blind_rotate_fused_packed"]``, each launch
 of the key-switch kernel behind it one to ``cmux.LAUNCHES["keyswitch"]``, and
-its batch to the same names of ``cmux.SAMPLES`` (``cmux.count_launch``).
+its batch to the same names of ``cmux.SAMPLES`` (``cmux.count_launch``); the
+host part of a wrapper on CUDA is the span ``tfhe.kernel.<wrapper>``.
 
 | wrapper                      | what it launches                            |
 |------------------------------|---------------------------------------------|
@@ -28,6 +29,7 @@ import torch
 from .. import ntt
 from ..params import TfheParams
 from ..core import bootstrap as bs
+from ..utils.profiling import span
 from ._build import check, library
 from .cmux import (_acc_rows, _check_batch, _check_params, _check_tks, _expect, _kernel_tables,
                    _on_cuda, _stream, count_launch, keyswitch_plan, keyswitch_ref)
@@ -98,19 +100,20 @@ def blind_rotate_fused_packed(acc_p: torch.Tensor, bara: torch.Tensor, bk_ntt: t
     kpl, k+1, N]. Returns the accumulator in the layout of acc_p."""
     if not _on_cuda(acc_p, bara, bk_ntt, bk_ntt_shoup):
         return blind_rotate_fused_packed_ref(acc_p, bara, bk_ntt, bk_ntt_shoup, params)
-    _check_params(params)
-    k1, N = params.k + 1, params.N
-    _check_n(params)
-    if N % LANE or acc_p.shape[0] % k1:
-        raise ValueError("acc_p: want int32[(k+1)*B, N/128, 128]")
-    B = acc_p.shape[0] // k1
-    _check_batch(B, params)
-    _expect(acc_p, torch.int32, (k1 * B, N // LANE, LANE), "acc_p")
-    n = bara.shape[0]
-    bara_b = _check_bara(bara, B)
-    _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
-    return _launch_packed(acc_p.clone(memory_format=torch.contiguous_format), bara_b, bk_ntt,
-                          bk_ntt_shoup, params)
+    with span("tfhe.kernel.blind_rotate_fused_packed", batch=bara.shape[-1]):
+        _check_params(params)
+        k1, N = params.k + 1, params.N
+        _check_n(params)
+        if N % LANE or acc_p.shape[0] % k1:
+            raise ValueError("acc_p: want int32[(k+1)*B, N/128, 128]")
+        B = acc_p.shape[0] // k1
+        _check_batch(B, params)
+        _expect(acc_p, torch.int32, (k1 * B, N // LANE, LANE), "acc_p")
+        n = bara.shape[0]
+        bara_b = _check_bara(bara, B)
+        _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
+        return _launch_packed(acc_p.clone(memory_format=torch.contiguous_format), bara_b, bk_ntt,
+                              bk_ntt_shoup, params)
 
 
 def _launch_packed(acc: torch.Tensor, bara_b: torch.Tensor, bk_ntt: torch.Tensor,
@@ -148,25 +151,26 @@ def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt
     if not _on_cuda(acc_t, bara, bk_ntt, bk_ntt_shoup, tks_lane):
         return blind_rotate_packed_ks_fused_ref(acc_t, bara, bk_ntt, bk_ntt_shoup, tks_lane,
                                                 params)
-    _check_params(params)
-    _check_n(params)
-    acc = _acc_rows(acc_t, params)
-    B = acc.shape[0]
-    n = bara.shape[0]
-    bara_b = _check_bara(bara, B)
-    _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
-    C = _check_tks(tks_lane, params)
-    mma, split = keyswitch_plan(B, params.N, C)
-    cluster = small_cluster(B, params.N, acc.device)
-    sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
-    r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
-    ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
-    tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
-    check(library().tfhe_blind_rotate_small_ks(
-        acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
-        tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
-        B, n, params.N, params.bk_Bgbit, params.decomp_offset, cluster, C, params.ks_t,
-        params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
-    count_launch("blind_rotate_fused_packed", B)
-    count_launch("keyswitch", B)
-    return r, ext
+    with span("tfhe.kernel.blind_rotate_packed_ks_fused", batch=acc_t.shape[-1]):
+        _check_params(params)
+        _check_n(params)
+        acc = _acc_rows(acc_t, params)
+        B = acc.shape[0]
+        n = bara.shape[0]
+        bara_b = _check_bara(bara, B)
+        _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
+        C = _check_tks(tks_lane, params)
+        mma, split = keyswitch_plan(B, params.N, C)
+        cluster = small_cluster(B, params.N, acc.device)
+        sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
+        r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
+        ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+        tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
+        check(library().tfhe_blind_rotate_small_ks(
+            acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
+            tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
+            B, n, params.N, params.bk_Bgbit, params.decomp_offset, cluster, C, params.ks_t,
+            params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
+        count_launch("blind_rotate_fused_packed", B)
+        count_launch("keyswitch", B)
+        return r, ext

@@ -36,6 +36,7 @@ import torch.distributed as dist
 from .. import gates
 from ..core import bootstrap as bs
 from ..core.lwe import LweCiphertext
+from ..utils.profiling import span
 
 
 # ------------------------------------------------------------------ processes
@@ -169,11 +170,13 @@ _gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_int
 def all_gather_cat(t: torch.Tensor, group, size: int, mesh: Mesh) -> torch.Tensor:
     """Concatenate along dim 0 the tensors of the `size` ranks of `group`,
     in rank order (every rank's tensor has the same shape), gathered into
-    one new buffer."""
-    h = _host(t, mesh)
-    out = h.new_empty((size * h.shape[0],) + tuple(h.shape[1:]))
-    _gather_single(out, h, group=group)
-    return out.to(t.device)
+    one new buffer. Its span ``tfhe.mesh.all_gather`` gives the bytes
+    gathered."""
+    with span("tfhe.mesh.all_gather", bytes=size * t.numel() * t.element_size()):
+        h = _host(t, mesh)
+        out = h.new_empty((size * h.shape[0],) + tuple(h.shape[1:]))
+        _gather_single(out, h, group=group)
+        return out.to(t.device)
 
 
 def all_reduce_sum(t: torch.Tensor, group, mesh: Mesh) -> torch.Tensor:
@@ -214,11 +217,12 @@ def sharded_gate2(name: str, x: LweCiphertext, y: LweCiphertext, cloud, mesh: Me
     gather."""
     if mesh.coords is None:
         return None
-    const, ca, cb = gates.GATE_TABLE[name]
-    i = _dp_index(mesh, axis)
-    xs, ys = _slice_ct(x, i, mesh.size), _slice_ct(y, i, mesh.size)
-    out = bs.bootstrap(gates._affine2(xs, ys, const, ca, cb), gates.MU, cloud)
-    return _gather_ct(out, mesh.group, mesh.size, mesh)
+    with span("tfhe.mesh.sharded_gate2", kind=name, batch=gates._flat_batch(x), ranks=mesh.size):
+        const, ca, cb = gates.GATE_TABLE[name]
+        i = _dp_index(mesh, axis)
+        xs, ys = _slice_ct(x, i, mesh.size), _slice_ct(y, i, mesh.size)
+        out = bs.bootstrap(gates._affine2(xs, ys, const, ca, cb), gates.MU, cloud)
+        return _gather_ct(out, mesh.group, mesh.size, mesh)
 
 
 def sharded_bootstrap_step(x: LweCiphertext, cloud, mesh: Mesh,
