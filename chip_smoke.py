@@ -47,24 +47,26 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
   6. circuits the serial-circuit path, eager (TFHE_TPU_CIRCUIT_JIT=0, as
               recorded before circuits were graphs): 16-bit CipherInt operands
               at one number per batch with the reference's keys at PARAMS_110; +, -,
-              *, >, eq, abs, minimum and / must decrypt to the plaintext
-              answer through K5 (launch counters), add16 must match the golden
-              SHA-256 tfhe_tpu computed on the CPU, and each op's wall time
-              is printed; add16 and div16 again with the key switch's
-              tensor-core arm forced at every batch, in turns with the planned
-              arms; then the same ops at PARAMS_SMALL on 8-bit operands
-              of batch 3 must equal, byte for byte, the plain route (the same
-              circuits on CPU tensors, where every wrapper takes its plain
-              version);
+              *, >, eq, abs, minimum and / (the adders in the arm the card
+              picks: prefix at one number) must decrypt to the plaintext
+              answer through K5 (launch counters), and each op's wall time
+              is printed; add16 with the ripple arm forced must match the
+              golden SHA-256 tfhe_tpu computed on the CPU; add16 and div16
+              again with the key switch's tensor-core arm forced at every
+              batch, in turns with the planned arms; then the same ops at
+              PARAMS_SMALL on 8-bit operands of batch 3 must equal, byte for
+              byte, the plain route (the same circuits on CPU tensors, where
+              every wrapper takes its plain version) in both adder arms;
   6b. graph   the same eight ops and vector_add / vector_mul / vector_sum at
               length 32 through arith.circuit's CUDA graphs (TFHE_TPU_CIRCUIT_JIT
               auto, graphs that capture on a key's second call): the first
               call eager, the second captures, then a replay on other
               operands; each byte-equal (a, b, cv) to the eager run on
               the same operands, with eager's launch counts, decrypting right;
-              add16 against the golden SHA-256; capture ms, replay and eager
-              wall ms in turns, the graphs held and their pools; add16 with the
-              key switch's tensor-core arm forced as a graph of its own; the
+              capture ms, replay and eager wall ms in turns, the graphs held
+              and their pools; add16 with the ripple arm and the key
+              switch's tensor-core arm forced against the golden SHA-256, as
+              a graph of its own; the
               capture rule's sweep (an add of 1 to 128 numbers, replay beside
               eager, the pools); add16's idle share under replay
               (torch.profiler). The kernel nodes of every captured graph,
@@ -995,10 +997,12 @@ def expect_plaintext(sk, label: str, out, truth, a, b, nbits: int) -> np.ndarray
 
 def phase_circuits(sk, smi: str) -> tuple:
     """The serial-circuit path: 16-bit CipherInt ops at one number per batch,
-    PARAMS_110, the reference's keys on the card. Each op runs twice (the
-    first run puts its index plans on the card) and the second is timed.
-    Returns the launch and sample counts of this phase and the two operands."""
-    from tfhe_tpu_torch import ref_keygen
+    PARAMS_110, the reference's keys on the card, the adders in the arm the
+    card picks (prefix at one number). Each op runs twice (the first run puts
+    its index plans on the card) and the second is timed; add16 with the
+    ripple arm forced against tfhe_tpu's golden. Returns the launch and
+    sample counts of this phase and the two operands."""
+    from tfhe_tpu_torch import config, ref_keygen
     from tfhe_tpu_torch.cipher import CipherInt
     from tfhe_tpu_torch.core.lwe import LweCiphertext
     from tfhe_tpu_torch.ops import cmux
@@ -1035,11 +1039,11 @@ def phase_circuits(sk, smi: str) -> tuple:
         log(f"[circuits] {name} 16-bit PARAMS_110, one number: decrypts to the plaintext "
             f"answer {int(got)}, {ms:.3f} ms, {k5} launches of blind_rotate_fused_packed "
             f"({smi})")
-        if name == "+":
-            digest = _hash(out.ct)
-            if digest != g["sha256"]:
-                raise AssertionError(f"add16 SHA-256 {digest} != {g['sha256']}")
-            log(f"[circuits] add16 matches tfhe_tpu's SHA-256 {digest}")
+    with config.overrides(TFHE_TPU_LOOKAHEAD="0"):       # tfhe_tpu's arm: ripple
+        digest = _hash((x + y).ct)
+    if digest != g["sha256"]:
+        raise AssertionError(f"add16 SHA-256 {digest} != {g['sha256']}")
+    log(f"[circuits] add16 with the ripple arm forced matches tfhe_tpu's SHA-256 {digest}")
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[circuits] launch counts: {counts['launches']}")
@@ -1077,9 +1081,9 @@ def phase_arms(x, y, smi: str) -> None:
 def phase_circuits_plain() -> None:
     """The same ops at PARAMS_SMALL, 8-bit operands, batch 3: on the card
     (kernels) and on CPU copies of the keys and inputs (the plain route),
-    byte for byte."""
+    byte for byte, in each arm of the adders, forced on both sides."""
     import tfhe_tpu_torch as tt
-    from tfhe_tpu_torch import arith
+    from tfhe_tpu_torch import arith, config
     from tfhe_tpu_torch.cipher import CipherInt
     nb = 8
     sk = tt.keygen(tt.PARAMS_SMALL, seed=8, device="cuda")
@@ -1091,14 +1095,19 @@ def phase_circuits_plain() -> None:
     card = [CipherInt(c, sk.cloud) for c in cts]
     host = [CipherInt(c.to("cpu"), cpu_cloud) for c in cts]
     t0 = time.time()
-    for (name, call, truth), (_, call_h, _) in zip(circuit_ops(*card), circuit_ops(*host)):
-        out, plain = call(), call_h()
-        expect_plaintext(sk, f"{name} PARAMS_SMALL", out, truth, a, b, nb)
-        got, want = (out.ct, plain.ct) if hasattr(out, "ct") else (out, plain)
-        if not (torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b)):
-            raise AssertionError(f"{name} PARAMS_SMALL: the card differs from the plain route")
+    for arm in ("0", "1"):
+        with config.overrides(TFHE_TPU_LOOKAHEAD=arm):
+            for (name, call, truth), (_, call_h, _) in zip(circuit_ops(*card),
+                                                           circuit_ops(*host)):
+                out, plain = call(), call_h()
+                label = f"{name} PARAMS_SMALL, TFHE_TPU_LOOKAHEAD={arm}"
+                expect_plaintext(sk, label, out, truth, a, b, nb)
+                got, want = (out.ct, plain.ct) if hasattr(out, "ct") else (out, plain)
+                if not (torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b)):
+                    raise AssertionError(f"{label}: the card differs from the plain route")
     log(f"[circuits] +, -, *, >, eq, abs, minimum, / at PARAMS_SMALL, 8-bit, batch 3: "
-        f"the card equals the plain route byte for byte ({time.time() - t0:.1f} s)")
+        f"the card equals the plain route byte for byte, ripple and prefix arms "
+        f"({time.time() - t0:.1f} s)")
 
 
 def expect_byte_equal(label: str, got, want) -> None:
@@ -1187,9 +1196,10 @@ def graph_run(label: str, call, call2, check, smi: str, digest=None) -> dict:
 def phase_graph(sk, x, y, smi: str) -> dict:
     """Whole circuits as CUDA graphs (arith.circuit): the eight 16-bit
     CipherInt ops at one number and vector_add / vector_mul / vector_sum at
-    length 32, PARAMS_110, the reference's keys, each through graph_run, add16
-    against the golden SHA-256; add16 again with the key switch's tensor-core
-    arm forced (KS_GATHER_MAX = 0), which must be a graph of its own; the
+    length 32, PARAMS_110, the reference's keys, each through graph_run; add16
+    with the ripple arm (TFHE_TPU_LOOKAHEAD=0) and the key switch's
+    tensor-core arm (KS_GATHER_MAX = 0) forced against the golden SHA-256,
+    which must be a graph of its own; the
     capture rule's sweep; add16's idle share under replay. The phase's
     graphs capture on a key's second call and keep their CUDA graphs for
     check_graph_nodes; the default graphs come back after it. Returns the
@@ -1227,7 +1237,7 @@ def graph_ops(sk, x, y, smi: str) -> dict:
         counts = graph_run(
             f"{name} {nb}-bit", call, call2,
             lambda out, t=truth, n=name: int(expect_plaintext(sk, f"[graph] {n}", out, t, a2, b2, nb)),
-            smi, golden["sha256"] if name == "+" else None)
+            smi)
         add_counts(total, counts)
 
     rng = np.random.RandomState(61)
@@ -1255,15 +1265,17 @@ def graph_ops(sk, x, y, smi: str) -> dict:
     held = arith.GRAPHS.graphs()
     cmux.KS_GATHER_MAX = 0
     try:
-        graph_run(f"+ {nb}-bit, key switch's tensor-core arm forced", lambda: x + y,
-                  lambda: x2 + y2, lambda out: int(arith.decrypt_int(sk, out.ct)), smi,
-                  golden["sha256"])
+        with config.overrides(TFHE_TPU_LOOKAHEAD="0"):   # tfhe_tpu's arm: ripple
+            graph_run(f"+ {nb}-bit, ripple and the key switch's tensor-core arm forced",
+                      lambda: x + y, lambda: x2 + y2,
+                      lambda out: int(arith.decrypt_int(sk, out.ct)), smi, golden["sha256"])
     finally:
         cmux.KS_GATHER_MAX = planned
     if arith.GRAPHS.graphs() != held + 1:
-        raise AssertionError("[graph] the forced arm did not capture a graph of its own")
-    log(f"[graph] the tensor-core arm forced (KS_GATHER_MAX = 0) is a key and a graph of its own: "
-        f"graphs held {held} -> {arith.GRAPHS.graphs()}, the planned arm's graph replays on")
+        raise AssertionError("[graph] the forced arms did not capture a graph of their own")
+    log(f"[graph] the ripple and tensor-core arms forced (TFHE_TPU_LOOKAHEAD=0, KS_GATHER_MAX = 0) "
+        f"are a key and a graph of their own: graphs held {held} -> {arith.GRAPHS.graphs()}, "
+        f"the planned arms' graphs replay on")
 
     phase_graph_rule(sk, smi)
     phase_profile(f"add16 PARAMS_110, one number, replayed", lambda: x2 + y2, smi, tag="graph")
@@ -1700,9 +1712,10 @@ def phase_apps(sk, smi: str) -> dict:
 def phase_linalg_plain() -> None:
     """matmul and cannon_matmul 2x2 at 8 bits and a 4-row regression at 6 bits,
     PARAMS_SMALL: on the card (kernels) and on CPU copies of the keys and
-    inputs (the plain route), byte for byte, and decrypting right."""
+    inputs (the plain route), byte for byte, and decrypting right; the
+    adders' ripple arm forced on both sides."""
     import tfhe_tpu_torch as tt
-    from tfhe_tpu_torch import arith, linalg
+    from tfhe_tpu_torch import arith, config, linalg
     from tfhe_tpu_torch.apps import linreg
     sk = tt.keygen(tt.PARAMS_SMALL, seed=9, device="cuda")
     cpu_cloud = sk.cloud.to("cpu")
@@ -1718,8 +1731,9 @@ def phase_linalg_plain() -> None:
              ("linear_regression", linreg.linear_regression, (cx, cy),
               [[v] for v in twin_linreg(x, y, 6, False)[0]])]
     for name, fn, args, want in cases:
-        out = fn(*args, sk.cloud)
-        plain = fn(*(c.to("cpu") for c in args), cpu_cloud)
+        with config.overrides(TFHE_TPU_LOOKAHEAD="0"):   # the CPU's arm, on the card too
+            out = fn(*args, sk.cloud)
+            plain = fn(*(c.to("cpu") for c in args), cpu_cloud)
         outs, plains = (out, plain) if isinstance(out, tuple) else ((out,), (plain,))
         for got, ref, truth in zip(outs, plains, want, strict=True):
             if not (torch.equal(got.a.cpu(), ref.a) and torch.equal(got.b.cpu(), ref.b)):
@@ -1734,8 +1748,8 @@ def phase_linalg_plain() -> None:
 def phase_linalg_golden(sk) -> None:
     """The 4-bit 2x2 matmul and cannon_matmul and the vector_sum of 4 on the
     golden's reference-encrypted operands must match the SHA-256 tfhe_tpu
-    computed on the CPU."""
-    from tfhe_tpu_torch import arith, linalg, ref_keygen
+    computed on the CPU, with tfhe_tpu's arm of the adders (ripple) forced."""
+    from tfhe_tpu_torch import arith, config, linalg, ref_keygen
     from tfhe_tpu_torch.core.lwe import LweCiphertext
     with open(GOLDEN_LINALG) as f:
         g = json.load(f)
@@ -1753,8 +1767,9 @@ def phase_linalg_golden(sk) -> None:
             torch.zeros(shape, dtype=torch.float32, device="cuda")))
         at += m
     ma, mb, vec = cts
-    outs = (linalg.matmul(ma, mb, sk.cloud), linalg.cannon_matmul(ma, mb, sk.cloud),
-            linalg.vector_sum(vec, sk.cloud))
+    with config.overrides(TFHE_TPU_LOOKAHEAD="0"):
+        outs = (linalg.matmul(ma, mb, sk.cloud), linalg.cannon_matmul(ma, mb, sk.cloud),
+                linalg.vector_sum(vec, sk.cloud))
     h = hashlib.sha256()
     for ct in outs:
         h.update(ct.a.cpu().numpy().astype("<i4").tobytes())

@@ -54,6 +54,8 @@ ARMS = {
         "minimum": (("pa", "pb"), lambda a, b: np.minimum(np.abs(a) & 127, np.abs(b) & 127)),
         "add_sign": (("a", "s"), lambda a, b: np.where([1, 0, 0, 1], -a, a)),
         "mul": (("a", "b"), lambda a, b: a * b),
+        "absolute": (("a",), lambda a, b: np.abs(a)),
+        "div": (("a", "b"), lambda a, b: np.trunc(a / b).astype(np.int64)),
     },
     "TFHE_TPU_SEPTET": {
         "mul": (("a", "b"), lambda a, b: a * b),

@@ -14,6 +14,8 @@ mul_plain (a static argument) and div through the stand-in's capture and
 replay equal ``tfhe_tpu``'s jitted circuits at PARAMS_TOY on 4-bit operands:
 a and b exact, cv to rtol 1e-6. The card's own graphs are held by
 tests/test_torch_cuda.py and chip_smoke.py's [graph] phase."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -35,8 +37,8 @@ class Recording:
     """Stand-in for ``arith.CudaGraph`` on CPU tensors: capture runs the
     circuit once (the outputs it returns are the graph's outputs), replay
     runs it again on the graph's input tensors and writes the results into
-    those outputs, and neither counts launches (the graph's launches are
-    counted by ``CircuitGraphs``)."""
+    those outputs, and neither counts launches or adder decisions (the
+    graph's are counted by ``CircuitGraphs``)."""
     device_type = "cpu"
     log: list = []
 
@@ -51,10 +53,11 @@ class Recording:
 
     def replay(self):
         Recording.log.append("replay")
-        saved = dict(cmux.LAUNCHES), dict(cmux.SAMPLES)
+        saved = dict(cmux.LAUNCHES), dict(cmux.SAMPLES), dict(arith.ADDER_ARMS)
         new = self.run()
         cmux.LAUNCHES.update(saved[0])
         cmux.SAMPLES.update(saved[1])
+        arith.ADDER_ARMS.update(saved[2])
         for o, n in zip(*((v,) if isinstance(v, LweCiphertext) else v for v in (self.out, new))):
             for f in ("a", "b", "cv"):
                 getattr(o, f).copy_(getattr(n, f))
@@ -130,11 +133,101 @@ def test_policy_fingerprint_moves_with_every_route(monkeypatch):
         with config.overrides(**{name: value}):
             assert config.policy_fingerprint("cpu", sk.cloud) != base, name
     for module, name, value in ((cmux, "KS_GATHER_MAX", 0), (bs, "SMALL_BATCH_MAX", 100),
-                                (bs, "CPU_MAX_BATCH", 7)):
+                                (bs, "CPU_MAX_BATCH", 7), (bs, "K5_C4_MS", 2.5),
+                                (bs, "STAGE_GLUE_MS", 0.5)):
         with monkeypatch.context() as m:
             m.setattr(module, name, value)
             assert config.policy_fingerprint("cpu", sk.cloud) != base, name
     assert config.policy_fingerprint("cpu", sk.cloud) == base
+
+
+# ------------------------------------------------------------------ the adders' arm
+
+CUDA, CPU = torch.device("cuda"), torch.device("cpu")
+IN_FLIGHT = 30          # samples an H100 holds at once in K5's clusters of four, N = 1024
+
+
+@pytest.mark.parametrize("numbers,nbits,prefix", [
+    (1, 16, True), (2, 16, True), (4, 16, True), (1, 32, True), (1, 8, True),
+    (5, 16, False), (32, 16, False), (64, 16, False), (1, 4, False)])
+def test_adder_arm_by_the_cards_cost(monkeypatch, numbers, nbits, prefix):
+    """On CUDA the arm whose stages cost less on the card: prefix for a few
+    numbers, ripple for many (and where the stage counts tie, as at 4 bits);
+    on the CPU, or with no device, ripple, as tfhe_tpu. A pure function of
+    its arguments and the routing constants: it makes no CUDA call, which
+    would raise where torch has no CUDA."""
+    monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
+    assert config.lookahead_enabled(numbers, nbits, CUDA, IN_FLIGHT) is prefix
+    assert config.lookahead_enabled(numbers, nbits, "cuda:1", IN_FLIGHT) is prefix
+    assert config.lookahead_enabled(numbers, nbits, CPU, IN_FLIGHT) is False
+    assert config.lookahead_enabled(numbers, nbits) is False
+    assert jconfig.lookahead_enabled(numbers, nbits) is False
+    for v in ("0", "1"):
+        with config.overrides(TFHE_TPU_LOOKAHEAD=v):
+            for device in (CUDA, CPU, None):
+                assert config.lookahead_enabled(numbers, nbits, device, IN_FLIGHT) is (v == "1")
+
+
+def test_adder_stages_and_their_prices():
+    """The stages each arm sends to bootstrap, and what a stage costs by the
+    route its batch takes: K5 in clusters of four up to IN_FLIGHT, then the
+    waves small_batch compares, then K3/K4's waves."""
+    assert config.adder_stages(1, 16) == ([2] * 16, [32, 45, 42, 36, 24, 15])
+    assert config.adder_stages(3, 4) == ([6] * 4, [24, 27, 18, 9])
+    assert config.adder_stages(2, 1) == ([4], [4])
+    glue = bs.STAGE_GLUE_MS
+    assert bs.stage_ms(1, IN_FLIGHT) == bs.stage_ms(30, IN_FLIGHT) == bs.K5_C4_MS + glue
+    assert bs.stage_ms(31, IN_FLIGHT) == bs.K5_TAIL_MS + glue
+    assert bs.stage_ms(132, IN_FLIGHT) == bs.K5_WAVE_MS + glue
+    assert bs.stage_ms(264, IN_FLIGHT) == bs.K3_WAVE_MS + glue
+    assert bs.stage_ms(1024, IN_FLIGHT) == 4 * bs.K3_WAVE_MS + glue
+    assert bs.stage_ms(1, 0) == bs.K3_WAVE_MS + glue             # no K5 (N > its limit)
+
+
+def test_adder_decisions_are_counted(monkeypatch):
+    """_latency_policy counts each decision in ADDER_ARMS; on CUDA it asks
+    how many samples the card holds in clusters of four
+    (cmux_packed.samples_in_flight, cached there), on the CPU nothing; the
+    forced flag wins on either."""
+    from tfhe_tpu_torch.ops import cmux_packed
+    monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
+    monkeypatch.setattr(arith, "ADDER_ARMS", {"prefix": 0, "ripple": 0})
+    asked = []
+    monkeypatch.setattr(cmux_packed, "samples_in_flight",
+                        lambda N, cluster, index: asked.append((N, cluster, index)) or IN_FLIGHT)
+    cloud = SimpleNamespace(params=pt.PARAMS_110)
+    assert arith._latency_policy(1, 16, "cuda:0", cloud) is True
+    assert arith._latency_policy(64, 16, "cuda:0", cloud) is False
+    assert arith._latency_policy(1, 16, "cpu", cloud) is False
+    assert asked == [(1024, 4, 0)] * 2
+    with config.overrides(TFHE_TPU_LOOKAHEAD="0"):
+        assert arith._latency_policy(1, 16, "cuda:0", cloud) is False
+    with config.overrides(TFHE_TPU_LOOKAHEAD="1"):
+        assert arith._latency_policy(64, 16, "cpu", cloud) is True
+    assert arith.ADDER_ARMS == {"prefix": 2, "ripple": 3}
+
+
+def test_replays_add_the_adder_decisions_of_their_capture(graphs, monkeypatch):
+    """A captured circuit's decisions count on every replay, as its launches
+    do, and once a call whatever the mode: the capture's own run adds none."""
+    monkeypatch.setattr(arith, "ADDER_ARMS", {"prefix": 0, "ripple": 0})
+    cloud = SimpleNamespace(params=pt.PARAMS_TOY)
+
+    @arith.circuit
+    def two_adds(x, cloud):
+        arith._latency_policy(1, NB, x.device, cloud)
+        arith._latency_policy(2, NB, x.device, cloud)
+        return LweCiphertext(x.a + 1, x.b, x.cv)
+
+    x = _random_ct(1)
+    counts = []
+    for _ in range(4):
+        two_adds(x, cloud)
+        counts.append(dict(arith.ADDER_ARMS))
+    assert Recording.log == ["capture", "replay", "replay", "replay"]
+    assert [c["ripple"] for c in counts] == [2, 4, 6, 8] and arith.ADDER_ARMS["prefix"] == 0
+    entry = next(iter(graphs.entries.values()))
+    assert entry.arms == {"prefix": 0, "ripple": 2}
 
 
 # ------------------------------------------------------------------ the key

@@ -222,9 +222,12 @@ def test_small_cluster_follows_what_the_card_holds(cuda):
     assert cmux_packed.small_cluster(two + 1, N, cuda) == 2
 
 
-def test_circuits_on_card_match_cpu(cuda):
+@pytest.mark.parametrize("arm", ["0", "1"])
+def test_circuits_on_card_match_cpu(cuda, arm):
     """The integer circuits on the card give the very samples of the CPU
-    plain path: PARAMS_SMALL, 4-bit operands, batch 2."""
+    plain path: PARAMS_SMALL, 4-bit operands, batch 2, in each arm of the
+    adders (TFHE_TPU_LOOKAHEAD forced on both sides: by default the card
+    picks its arm by its cost a stage, the CPU ripple)."""
     sk = tt.keygen(tt.PARAMS_SMALL, seed=4, device=cuda)
     cpu_cloud = sk.cloud.to("cpu")
     gen = torch.Generator(device=cuda)
@@ -235,11 +238,28 @@ def test_circuits_on_card_match_cpu(cuda):
     cases = [(arith.add, (x, y)), (arith.sub, (x, y)), (arith.mul, (x, y)),
              (arith.gt, (x, y)), (arith.eq, (x, y)), (arith.absolute, (x,)),
              (arith.minimum, (px, py)), (arith.div, (x, y))]
-    for fn, args in cases:
-        got = fn(*args, sk.cloud)
-        want = fn(*[v.to("cpu") for v in args], cpu_cloud)
-        assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b), fn
-    np.testing.assert_array_equal(arith.decrypt_int(sk, arith.div(x, y, sk.cloud)), [-2, -1])
+    with config.overrides(TFHE_TPU_LOOKAHEAD=arm):
+        for fn, args in cases:
+            got = fn(*args, sk.cloud)
+            want = fn(*[v.to("cpu") for v in args], cpu_cloud)
+            assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b), fn
+        np.testing.assert_array_equal(arith.decrypt_int(sk, arith.div(x, y, sk.cloud)), [-2, -1])
+
+
+def test_adder_arm_on_the_card(cuda):
+    """On the card the adders take prefix for one 16-bit number and ripple
+    for 64, counted in ADDER_ARMS, and both decrypt right."""
+    sk = tt.keygen(tt.PARAMS_110, seed=14, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    for numbers, arm in ((1, "prefix"), (64, "ripple")):
+        a, b = (np.arange(numbers) * k - 3000 for k in (37, -11))
+        x, y = (arith.encrypt_int(sk, v, 16, gen, cuda) for v in (a, b))
+        before = dict(arith.ADDER_ARMS)
+        with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
+            out = arith.add(x, y, sk.cloud)
+        assert arith.ADDER_ARMS[arm] == before[arm] + 1
+        np.testing.assert_array_equal(arith.decrypt_int(sk, out), a + b)
 
 
 @pytest.mark.parametrize("B", [1, 3, 64])

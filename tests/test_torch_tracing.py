@@ -196,6 +196,40 @@ def test_circuit_modes_and_seconds(monkeypatch):
     assert g.counts == {"first": 1, "eager": 1, "capture": 1, "replay": 2, "over_rule": 1}
 
 
+def test_circuit_span_names_the_adders_arm(monkeypatch):
+    """tfhe.circuit carries the arm its adders took in every mode, a
+    replay's from its capture; "mixed" where they took both; nothing where
+    the circuit decides none."""
+    g = arith.CircuitGraphs(_StandIn, eager_calls=2)
+    monkeypatch.setattr(arith, "GRAPHS", g)
+    cloud = SimpleNamespace(params=pt.PARAMS_TOY)
+
+    @arith.circuit
+    def adds(x, cloud, numbers=(1,)):
+        for m in numbers:
+            arith._latency_policy(m, 16, x.device, cloud)
+        return LweCiphertext(x.a + 1, x.b, x.cv)
+
+    x = _ct(3)
+    with config.overrides(TFHE_TPU_CIRCUIT_JIT="1"), profile():
+        for _ in range(5):
+            adds(x, cloud)
+        with config.overrides(TFHE_TPU_LOOKAHEAD="1"):
+            adds(x, cloud)
+        adds(x, cloud, numbers=())
+    calls = [r.attrs for r in profiling.spans() if r.name == "tfhe.circuit"]
+    assert [(a["mode"], a.get("arm")) for a in calls] == [
+        ("first", "ripple"), ("eager", "ripple"), ("capture", "ripple"), ("replay", "ripple"),
+        ("replay", "ripple"), ("first", "prefix"), ("off", None)]
+
+    monkeypatch.setattr(config, "lookahead_enabled", lambda numbers, *_: numbers == 1)
+    profiling.reset_spans()
+    with profile():
+        adds(x, cloud, numbers=(1, 64))
+    (call,) = [r.attrs for r in profiling.spans() if r.name == "tfhe.circuit"]
+    assert call == {"circuit": adds.__qualname__, "mode": "off", "arm": "mixed"}
+
+
 def test_circuit_seconds_without_a_profiler(monkeypatch):
     """The graphs' seconds are kept whether or not a profiler records."""
     g = arith.CircuitGraphs(_StandIn, eager_calls=1)

@@ -40,7 +40,7 @@ from . import gates
 from .config import circuit_jit_enabled, policy_fingerprint
 from .core.keys import CloudKey
 from .core.lwe import LweCiphertext, keeping, lwe_concat, lwe_stack, lwe_take
-from .ops import cmux
+from .ops import cmux, cmux_packed
 from .numeric import wrap_i32
 from .params import TfheParams
 from .utils.profiling import NO_SPAN, span
@@ -112,6 +112,11 @@ GRAPH_MAX = 32
 
 _INSIDE = threading.local()      # depth of decorated calls on this thread
 
+# The adder family's decisions by arm (``_latency_policy``), counted as
+# ``cmux.LAUNCHES`` counts launches: a captured circuit adds the decisions of
+# its capture on each replay.
+ADDER_ARMS = {"prefix": 0, "ripple": 0}
+
 
 class CudaGraph:
     """One circuit captured as a ``torch.cuda.CUDAGraph`` on a card, with a
@@ -167,9 +172,9 @@ def _clone(out):
 class _Entry:
     """A key's state: called `calls` times eagerly (graph None; its identity
     arguments held weakly), or captured (the graph, its static inputs and
-    outputs, and the launches each replay makes). `held` maps the cache keys
-    of the plans its eager calls and its capture read to the tensors
-    (``core/lwe.keeping``)."""
+    outputs, and the launches and adder decisions each replay makes). `held`
+    maps the cache keys of the plans its eager calls and its capture read to
+    the tensors (``core/lwe.keeping``)."""
     refs: tuple
     held: dict
     calls: int = 0
@@ -178,6 +183,7 @@ class _Entry:
     out: object = None
     launches: dict = None
     samples: dict = None
+    arms: dict = None
 
 
 class CircuitGraphs:
@@ -270,7 +276,7 @@ class CircuitGraphs:
                   if isinstance(a, LweCiphertext) else None for a in args]
         static = [s if s is not None else a for s, a in zip(inputs, args)]
         graph = self.graph(device)
-        launches, samples = dict(cmux.LAUNCHES), dict(cmux.SAMPLES)
+        launches, samples, arms = dict(cmux.LAUNCHES), dict(cmux.SAMPLES), dict(ADDER_ARMS)
         try:
             with span("tfhe.circuit.capture"), keeping(warm.held):
                 out = graph.capture(lambda: f(*static))
@@ -281,10 +287,13 @@ class CircuitGraphs:
             # the capture ran nothing: what the wrappers counted, each replay launches
             d_launches = {k: cmux.LAUNCHES[k] - v for k, v in launches.items()}
             d_samples = {k: cmux.SAMPLES[k] - v for k, v in samples.items()}
+            d_arms = {k: ADDER_ARMS[k] - v for k, v in arms.items()}
             cmux.LAUNCHES.update(launches)
             cmux.SAMPLES.update(samples)
+            ADDER_ARMS.update(arms)
         _check_outputs(out)
-        entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, d_launches, d_samples)
+        entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, d_launches, d_samples,
+                       d_arms)
         self._remember(key, entry)
         return entry
 
@@ -299,6 +308,8 @@ class CircuitGraphs:
         for k, v in entry.launches.items():
             cmux.LAUNCHES[k] += v
             cmux.SAMPLES[k] += entry.samples[k]
+        for k, v in entry.arms.items():
+            ADDER_ARMS[k] += v
         return _clone(entry.out)
 
 
@@ -364,8 +375,9 @@ def circuit(fn=None, *, static_argnums=()):
     bit of the result. `static_argnums` name the positional arguments that are
     Python numbers, keyed by value (``mul_plain``'s constant, ``mul_full``'s
     width). An outer call is the span ``tfhe.circuit``, with the circuit's
-    name and its mode: first, eager, capture, replay (``CircuitGraphs``),
-    over_rule or off (eager, as ``_graph_device`` says)."""
+    name, its mode: first, eager, capture, replay (``CircuitGraphs``),
+    over_rule or off (eager, as ``_graph_device`` says), and, where it adds,
+    the adders' arm: prefix, ripple or mixed (``_latency_policy``)."""
     static = frozenset(static_argnums)
 
     def deco(f):
@@ -376,12 +388,19 @@ def circuit(fn=None, *, static_argnums=()):
             _INSIDE.depth = 1
             try:
                 with span("tfhe.circuit", circuit=f.__qualname__) as sp:
+                    arms = dict(ADDER_ARMS) if sp else None
                     device, why = (None, "off") if kwargs else _graph_device(args)
                     if device is None:
                         sp.set(mode=why)
-                        return f(*args, **kwargs)
-                    key, by_id = circuit_key(f, args, static, device)
-                    return GRAPHS.call(f, args, key, by_id, device, sp)
+                        out = f(*args, **kwargs)
+                    else:
+                        key, by_id = circuit_key(f, args, static, device)
+                        out = GRAPHS.call(f, args, key, by_id, device, sp)
+                    if sp:
+                        chosen = [k for k, v in arms.items() if ADDER_ARMS[k] > v]
+                        if chosen:
+                            sp.set(arm=chosen[0] if len(chosen) == 1 else "mixed")
+                    return out
             finally:
                 _INSIDE.depth = 0
         return wrapper
@@ -391,16 +410,27 @@ def circuit(fn=None, *, static_argnums=()):
 
 # --------------------------------------------------------------- adders
 
-def _latency_policy(numbers: int, nbits: int) -> bool:
-    """Prefix-vs-ripple adder dispatch (config.lookahead_enabled).
-    `numbers` = independent integers in the batch."""
+def _latency_policy(numbers: int, nbits: int, device, cloud) -> bool:
+    """The adder family's arm (``config.lookahead_enabled``): True for the
+    parallel-prefix circuits, False for the ripple ones, for `numbers`
+    independent nbits integers on `device`. On the card a stage costs the
+    same from 1 to 30 samples, so the prefix arm's fewer, wider stages win
+    for a few numbers and ripple's narrow ones for many; on the CPU ripple,
+    as ``tfhe_tpu``. Each decision adds one to ``ADDER_ARMS``."""
     from .config import lookahead_enabled
-    return lookahead_enabled(numbers, nbits)
+    device = torch.device(device)
+    in_flight = 0
+    if device.type == "cuda" and cloud.params.N <= cmux_packed.N_MAX:
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        in_flight = cmux_packed.samples_in_flight(cloud.params.N, 4, index)
+    prefix = lookahead_enabled(numbers, nbits, device, in_flight)
+    ADDER_ARMS["prefix" if prefix else "ripple"] += 1
+    return prefix
 
 
-def _latency_bound(a: LweCiphertext) -> bool:
+def _latency_bound(a: LweCiphertext, cloud) -> bool:
     nbits = a.batch_shape[-1]
-    return _latency_policy(gates._flat_batch(a) // max(nbits, 1), nbits)
+    return _latency_policy(gates._flat_batch(a) // max(nbits, 1), nbits, a.device, cloud)
 
 
 @circuit
@@ -410,7 +440,7 @@ def add(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     bootstrap (sum and carry images) and one key switch. The result has the
     same nbits (overflow dropped, as in the reference). With the prefix arm
     on, the Kogge-Stone adder (add_fast)."""
-    if _latency_bound(a):
+    if _latency_bound(a, cloud):
         return add_fast(a, b, cloud)
     nbits = a.batch_shape[-1]
     # bit 0: sum = XOR, carry = AND, one compound bootstrap
@@ -506,7 +536,7 @@ def twos_complement(a: LweCiphertext, cloud) -> LweCiphertext:
     signal, one compound (XOR, OR) bootstrap per bit; the prefix arm uses
     the log-depth prefix-OR scan instead."""
     nbits = a.batch_shape[-1]
-    if _latency_bound(a):
+    if _latency_bound(a, cloud):
         return gates.XOR(a, _or_scan_excl(a, cloud), cloud)
     reach = zero_like_bits(a, a.batch_shape[:-1])
     outs = []
@@ -522,7 +552,7 @@ def sub(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     carry-in (the NOT is a free negation). The prefix arm uses
     (g, p) = (a & ~b, a xnor b) with the carry-in folded into g_0 (a | ~b)."""
     nbits = a.batch_shape[-1]
-    if _latency_bound(a):
+    if _latency_bound(a, cloud):
         g, p = gates.gate2_pair("ANDYN", "XNOR", a, b, a, b, cloud)
         g0 = gates.ORYN(a[..., :1], b[..., :1], cloud)     # carry-in = 1
         c = _prefix_carry_chain(lwe_concat([g0, g[..., 1:]], axis=-1), p, cloud)
@@ -830,7 +860,7 @@ def _wallace_sum_bits_septet(cur: LweCiphertext, cc: np.ndarray, nbits: int,
     row0 = lwe_take(curz, r0, axis=-1)
     row1 = lwe_take(curz, r1, axis=-1)
     Bl = _numel(lead)
-    if _latency_policy(Bl, nbits):
+    if _latency_policy(Bl, nbits, cur.device, cloud):
         # prefix arm: recode both rows to +-1/8 in one bootstrap batch, then
         # the log-depth prefix adder
         both = lwe_concat([row0, row1], axis=-1)
@@ -1025,7 +1055,7 @@ def compare_bit(result, ai, bi, cloud):
 def minimum(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     """Minimum of two positive numbers (ref minimum, Cipher.cpp:313-333)."""
     nbits = a.batch_shape[-1]
-    if _latency_bound(a):
+    if _latency_bound(a, cloud):
         g, p = gates.gate2_pair("ANDYN", "XNOR", a, b, a, b, cloud)
         cmp = _cmp_carry_tree(g, p, cloud)                 # unsigned a > b
     else:
@@ -1043,7 +1073,7 @@ def gt(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     and the signed fixup (a_msb ^ b_msb) ^ cin is one XOR3. The prefix arm
     reduces the carry with the pairwise (g, p) combine tree."""
     nbits = a.batch_shape[-1]
-    if _latency_bound(a):
+    if _latency_bound(a, cloud):
         g, p = gates.gate2_pair("ANDYN", "XNOR", a, b, a, b, cloud)
         cin = _cmp_carry_tree(g, p, cloud)
     else:
@@ -1089,7 +1119,7 @@ def absolute(a: LweCiphertext, cloud) -> LweCiphertext:
 def add_sign(x: LweCiphertext, sign, cloud) -> LweCiphertext:
     """Conditionally negate x when sign == 1 (ref addSign, Cipher.cpp:560-577)."""
     nbits = x.batch_shape[-1]
-    if _latency_bound(x):
+    if _latency_bound(x, cloud):
         res = gates.XOR(x, _or_scan_excl(x, cloud), cloud)
     else:
         reach = zero_like_bits(x, x.batch_shape[:-1])

@@ -55,16 +55,47 @@ from .lwe import LweCiphertext
 SMALL_BATCH_MAX = 858
 K5_WAVE, K5_WAVE_MS, K5_TAIL_MS = 132, 3.6, 2.1
 K3_WAVE, K3_WAVE_MS = 264, 6.2
+# One stage of a serial circuit on the same card. K5 in clusters of four CTAs
+# (``cmux_packed.small_cluster``: the batches the card holds at once that
+# way, 30 samples at N = 1024) takes K5_C4_MS whatever the batch: 1.830 ms
+# at B = 1, 1.845 at 30, its 500 dependent CMux steps and not its samples
+# set the time. The key switch and the glue kernels around a bootstrap add
+# STAGE_GLUE_MS: add16 replayed, 16 stages of 2 samples, takes 30.6-31.6 ms,
+# ~1.94 ms a stage. Left out: a stage whose key switch runs apart from its
+# blind rotate (a prefix level, a MUX: ``key_switch``, torch._int_mm on the
+# card) pays ~0.75 ms more, so the estimate favours the prefix arm where the
+# two are close (PERF.md, PR 14).
+K5_C4_MS, STAGE_GLUE_MS = 1.84, 0.1
+
+
+def k5_ms(B: int) -> float:
+    """K5's time for a flat batch of B in clusters of two, by its waves."""
+    full, tail = divmod(B, K5_WAVE)
+    return full * K5_WAVE_MS + (0.0 if tail == 0 else
+                                K5_TAIL_MS if 2 * tail <= K5_WAVE else K5_WAVE_MS)
+
+
+def k3_ms(B: int) -> float:
+    """K3's (and K4's) time for a flat batch of B, by its waves."""
+    return -(-B // K3_WAVE) * K3_WAVE_MS
 
 
 def small_batch(B: int) -> bool:
     """True when the small-batch blind rotate (K5) is the faster one for a
     flat batch of B samples, by the measured wave times above."""
-    if B > SMALL_BATCH_MAX:
-        return False
-    full, tail = divmod(B, K5_WAVE)
-    last = 0.0 if tail == 0 else K5_TAIL_MS if 2 * tail <= K5_WAVE else K5_WAVE_MS
-    return full * K5_WAVE_MS + last <= -(-B // K3_WAVE) * K3_WAVE_MS
+    return B <= SMALL_BATCH_MAX and k5_ms(B) <= k3_ms(B)
+
+
+def stage_ms(B: int, in_flight: int) -> float:
+    """The estimated time of one bootstrap of a flat batch of B on the card,
+    by the route it takes: K5 in clusters of four up to `in_flight` samples
+    (``cmux_packed.samples_in_flight(N, 4, card)``, 0 where K5 cannot run),
+    else the blind rotate ``small_batch`` picks; then the key switch and glue."""
+    if B <= in_flight:
+        rotate = K5_C4_MS
+    else:
+        rotate = k5_ms(B) if in_flight and small_batch(B) else k3_ms(B)
+    return rotate + STAGE_GLUE_MS
 
 
 # ------------------------------------------------------------------ pieces
