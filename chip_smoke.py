@@ -25,7 +25,7 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               matrix); K1 and K2 also without their wrappers' copies, at batch
               256 and 1 (what a launch and its set-up cost); K3 and K4 again at
               the first batch from which the bootstrap gives them every batch
-              (SMALL_BATCH_MAX + 1) and, on a few hundred rows of each batch
+              (small_batch_max + 1) and, on a few hundred rows of each batch
               (first, last, tile and wave borders, random), at the batches of
               phases 7 and 8: K4 at 272,000 and 69,632 samples, K3 and the
               key switch alone at 64,000, every sample a random ciphertext;
@@ -35,13 +35,22 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
               list of batches, with all-zero and all-nonzero digits; then the
               key switch, and K5 beside every form of K3, over sweeps of the
               batch;
+  3b. p128    PARAMS_128 (l = 3, n = 630, key-switch table of C = 640
+              columns) at its gate path's shapes, keys made on the card: K3
+              and K4 in the planned form (2 samples a block, 1 key buffer) at
+              B = 256, K5 with the key switch in clusters of four (B = 30) and
+              of two (B = 256), each byte-equal to its plain version, one
+              launch a call in its planned form (the "p128" path of the
+              kernels line), timed beside its bound at l = 3
+              (h100_bench/roofline.py); the key switch alone at B = 1 and 256
+              in the planned arm and both arms forced, byte-equal;
   4. main     the reference's keys at PARAMS_110, made on the card; a batch
               of 256 encrypted AND gates through the fused route must decrypt
               to a & b, through the kernels bootstrap.small_batch() picks for
               it (launch counters: K4, and K3 on the split route), equal the
               split route, and match the golden SHA-256 that tfhe_tpu
               computed on the CPU for 8 reference-encrypted inputs (through
-              K5); then a batch beyond SMALL_BATCH_MAX the same way (K4, K3);
+              K5); then a batch beyond small_batch_max the same way (K4, K3);
   5. timing   AND chained 5 times on the batch of 256, kernel route and plain
               route, in ms per batch and bootstraps/s;
   6. circuits the serial-circuit path, eager (TFHE_TPU_CIRCUIT_JIT=0, as
@@ -145,7 +154,8 @@ asks for it, on CPU copies, to be compared with.
 
 The line before the last is a JSON object with the path's kernels (the
 "graph" path: the launches the [graph] phase's replays made, as the graphs
-count them; with --cards 4 the "parallel" and "cards4" paths, each kernel's
+count them; the "p128" path and each kernel's "params128" rows: [p128]'s
+checked calls, their ms and bounds; with --cards 4 the "parallel" and "cards4" paths, each kernel's
 max |err| on the four cards and no times); the last
 line is {"ok": true, "device": {...}}. Without a CUDA card the script exits
 nonzero and prints no result.
@@ -153,6 +163,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import hashlib
 import json
@@ -184,6 +195,7 @@ SOURCE_SMALL = "tfhe_tpu_torch/csrc/blind_rotate_small.cu"
 SWEEP = (1, 2, 8, 30, 31, 64, 132, 133, 192, 264, 265, 396, 528, 660, 792, 1056, 1188, 1320,
          2048, 4096)
 LARGE_BATCH = 2049     # K3 and K4 against plain at a batch of several waves
+P128_BATCH, P128_C4 = 256, 30   # [p128]: the gate cell's batch, and K5's in clusters of four
 WIDE_RANDOM = 160      # random rows held against plain at the linalg and linreg batches
 ROUTE_SLACK = 1.08     # the kernel small_batch() picks may be this much slower than the other
 KS_CHECK = (1, 2, 3, 33, 64, 256)           # key switch against keyswitch_ref, both arms
@@ -583,14 +595,14 @@ def phase_kernels(sk, x, smi: str) -> dict:
     # K1 and K2 without the wrappers' layout copies: one launch of one step
     tab_dec = dec.permute(2, 0, 1).contiguous()
     delta = torch.empty((B, params.k + 1, params.N), dtype=torch.int32, device="cuda")
-    form = cmux.blind_rotate_plan(params.N)
+    form = cmux.blind_rotate_plan(params.N, params.bk_l)
     tab = cmux._kernel_tables(params.N, params.halfBg, "cuda")
     for count in (B, 1):
         acc_rows, bara_b = cmux._acc_rows(acc_t[:, :, :count], params), bara_t[:1, :count].T.contiguous()
         k2 = cuda_ms(lambda: cmux._launch_rotate(acc_rows, bara_b, bk[0], sh[0], params), 50)
         k1 = cuda_ms(lambda: cmux.check(cmux.library().tfhe_cmux_delta(
             tab_dec.data_ptr(), bk[0].data_ptr(), sh[0].data_ptr(), tab.data_ptr(),
-            delta.data_ptr(), count, params.N, *form, cmux._stream(delta))), 50)
+            delta.data_ptr(), count, params.N, params.bk_l, *form, cmux._stream(delta))), 50)
         out["cmux_delta"][f"launch_only_ms_B{count}"] = k1
         out["blind_rotate_step"][f"launch_only_ms_B{count}"] = k2
         log(f"[kernels] one step without the wrapper's copies, PARAMS_110 B={count}: cmux_delta "
@@ -616,7 +628,7 @@ def phase_kernels(sk, x, smi: str) -> dict:
 
 def check_large_batch(sk, x) -> None:
     """K3 and K4 at the first batch from which the bootstrap gives them every
-    batch, SMALL_BATCH_MAX + 1, and at LARGE_BATCH (several waves of blocks, an
+    batch, small_batch_max + 1, and at LARGE_BATCH (several waves of blocks, an
     odd batch that leaves the last block one sample), byte-equal to their
     plain versions. The plain blind rotate runs once, on the larger batch (the
     smaller is its first samples); K4's plain version is keyswitch_ref of that
@@ -627,7 +639,8 @@ def check_large_batch(sk, x) -> None:
     from tfhe_tpu_torch.ops import cmux
     params, cloud = sk.params, sk.cloud
     bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
-    batches = sorted({bs.SMALL_BATCH_MAX + 1, LARGE_BATCH})
+    top = bs.waves(params).small_batch_max
+    batches = sorted({top + 1, LARGE_BATCH})
     t0 = time.time()
     xs = lwe_concat([x] * -(-batches[-1] // x.b.shape[0]))[:batches[-1]]
     acc, bara = bs._prepare_acc(xs, gates.MU, cloud)
@@ -644,8 +657,8 @@ def check_large_batch(sk, x) -> None:
                                     cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params),
                                     cmux.keyswitch_ref(plain_acc, tks, params)))
     torch.cuda.synchronize()
-    log(f"[kernels] blind_rotate and blind_rotate_ks PARAMS_110 B={batches} (SMALL_BATCH_MAX = "
-        f"{bs.SMALL_BATCH_MAX}: every batch above it is theirs): byte-equal to plain "
+    log(f"[kernels] blind_rotate and blind_rotate_ks PARAMS_110 B={batches} (small_batch_max = "
+        f"{top}: every batch above it is theirs): byte-equal to plain "
         f"(max |err| {err}; {time.time() - t0:.1f} s)")
 
 
@@ -656,7 +669,7 @@ def wide_rows(B: int, N: int, rng: np.random.RandomState) -> np.ndarray:
     block, one block a multiprocessor) and of the last such tile and wave, and
     WIDE_RANDOM rows drawn from the whole batch."""
     from tfhe_tpu_torch.ops import cmux
-    S, _ = cmux.blind_rotate_plan(N)
+    S, _ = cmux.blind_rotate_plan(N, 2)
     wave = S * torch.cuda.get_device_properties(0).multi_processor_count
     rows = {0, 1, B - 2, B - 1}
     for unit in (cmux.KS_MMA_ROWS, wave):
@@ -746,7 +759,8 @@ def check_ragged(sk, x) -> None:
     params, cloud = sk.params, sk.cloud
     bk, sh, tks = cloud.bk_rows, cloud.bk_rows_shoup, cloud.ks_table_perm
     t0 = time.time()
-    forms = [f for f in cmux.CMUX_FORMS if cmux.cmux_smem_bytes(params.N, *f) <= cmux.SMEM_MAX]
+    forms = [f for f in cmux.CMUX_FORMS[params.bk_l]
+             if cmux.cmux_smem_bytes(params.N, *f, params.bk_l) <= cmux.SMEM_MAX]
     err, held = 0, []
     batches = sorted({b for S, _ in forms for b in (1, S - 1, S + 1) if b > 0})
     acc, bara = bs._prepare_acc(x[:batches[-1]], gates.MU, cloud)
@@ -793,7 +807,8 @@ def phase_k5(sk, x, smi: str) -> dict:
     params, cloud = sk.params, sk.cloud
     bk, sh, tks = cloud.bk_ntt, cloud.bk_ntt_shoup, cloud.ks_table_perm
     forms = {"4 CTAs": 4, "2 CTAs": 2}
-    waves = {name: cp.samples_in_flight(params.N, cluster, torch.cuda.current_device())
+    waves = {name: cp.samples_in_flight(params.N, cluster, torch.cuda.current_device(),
+                                        params.bk_l)
              for name, cluster in forms.items()}
     log(f"[kernels] K5 samples in flight at PARAMS_110, by CTAs a sample: {waves}")
     err = 0
@@ -832,15 +847,15 @@ def phase_k5(sk, x, smi: str) -> dict:
         k3_forms = ", ".join(
             f"{form} " + format(cuda_ms(lambda: cmux._launch_rotate(
                 rows3, bara_b, cloud.bk_rows, cloud.bk_rows_shoup, params, form), 3), ".3f")
-            for form in cmux.CMUX_FORMS
-            if cmux.cmux_smem_bytes(params.N, *form) <= cmux.SMEM_MAX)
+            for form in cmux.CMUX_FORMS[params.bk_l]
+            if cmux.cmux_smem_bytes(params.N, *form, params.bk_l) <= cmux.SMEM_MAX)
         k5ks = cuda_ms(lambda: cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks,
                                                                params), 3)
         k4 = cuda_ms(lambda: cmux.blind_rotate_ks_fused(acc_t, bara_t, cloud.bk_rows,
                                                         cloud.bk_rows_shoup, tks, params), 3)
         work = bound(2 * nbytes(acc_t) + nbytes(bara_t, bk, sh), cmux_seconds(params, B, params.n))
-        route = "K5" if bs.small_batch(B) else "K3/K4"
-        taken, other = (k5ks, k4) if bs.small_batch(B) else (k4, k5ks)
+        route = "K5" if bs.small_batch(B, params) else "K3/K4"
+        taken, other = (k5ks, k4) if bs.small_batch(B, params) else (k4, k5ks)
         if taken > ROUTE_SLACK * other:
             raise AssertionError(f"B={B}: small_batch() routes to {route}, {taken:.3f} ms with the "
                                  f"key switch, but the other kernel takes {other:.3f} ms")
@@ -854,6 +869,129 @@ def phase_k5(sk, x, smi: str) -> dict:
             "us_per_step": ms / params.n * 1e3, "shape": "PARAMS_110 B=1",
             "sweep": {str(b): r for b, r in sweep.items()}}
 
+
+
+def roofline_module():
+    """h100_bench/roofline.py: the bound of a blind rotate, the benchmark's
+    yardstick, which prices any gadget length."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "h100_bench_roofline", os.path.join(ROOT, "h100_bench", "roofline.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_p128(smi: str) -> tuple:
+    """PARAMS_128 (l = 3, n = 630, C = 640) at the shapes of its gate path:
+    keys made on the card (keygen), the AND accumulators of P128_BATCH random
+    bits, then K3 and K4 in the planned form at B = 256 and K5 with the key
+    switch in clusters of four (B = P128_C4) and of two (B = 256), each
+    byte-equal to its plain version on the same inputs. The launches of those
+    calls, counted from reset_launches(), must be one a call in the form the
+    plan names, and are the kernels line's "p128" path. Then the key switch
+    alone at n = 630, the planned arm and both arms forced, at B = 1 and 256;
+    and each kernel's time beside its bound at l = 3 (h100_bench/roofline.py,
+    the key read once a launch). Returns (the counts, the rows by kernel)."""
+    import tfhe_tpu_torch as tt
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.core import bootstrap as bs
+    from tfhe_tpu_torch.ops import cmux, cmux_packed as cp
+    roof, P = roofline_module(), tt.PARAMS_128
+    t0 = time.time()
+    sk = tt.keygen(P, seed=128, device="cuda")
+    cloud = sk.cloud
+    bits = np.random.RandomState(128).randint(0, 2, P128_BATCH).astype(np.int32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(128)
+    acc, bara = bs._prepare_acc(tt.encrypt_bits(sk, bits, gen, "cuda"), gates.MU, cloud)
+    acc_all, bara_all = acc.permute(1, 2, 0).contiguous(), bara.T.contiguous()
+    torch.cuda.synchronize()
+    log(f"[p128] keys at PARAMS_128 made on the card and {P128_BATCH} samples prepared in "
+        f"{time.time() - t0:.1f} s")
+    rows, ntts, tks = ((cloud.bk_rows, cloud.bk_rows_shoup), (cloud.bk_ntt, cloud.bk_ntt_shoup),
+                       cloud.ks_table_perm)
+    S, nbuf = cmux.blind_rotate_plan(P.N, P.bk_l)
+    c4 = cp.samples_in_flight(P.N, 4, torch.cuda.current_device(), P.bk_l)
+    if c4 < P128_C4:
+        raise AssertionError(f"[p128] the card holds {c4} samples in clusters of four, not "
+                             f"{P128_C4}")
+    k4_form = (P.bk_l, S, nbuf)
+    c4_form, c2_form = ((P.bk_l,) + cp.CLUSTER_FORMS[c] for c in (4, 2))
+    # (kernels-line name, label, B, kernel, plain, key switch fused, launches, form key)
+    calls = (
+        ("blind_rotate", f"K3 form {S}/{nbuf}", P128_BATCH,
+         lambda a, b: cmux.blind_rotate_fused(a, b, *rows, P),
+         lambda a, b: cmux.blind_rotate_fused_ref(a, b, *rows, P), False,
+         {"blind_rotate_fused": 1}, ("blind_rotate_fused",) + k4_form),
+        ("blind_rotate_ks", f"K4 form {S}/{nbuf}", P128_BATCH,
+         lambda a, b: cmux.blind_rotate_ks_fused(a, b, *rows, tks, P),
+         lambda a, b: cmux.blind_rotate_ks_fused_ref(a, b, *rows, tks, P), True,
+         {"blind_rotate_ks_fused": 1, "keyswitch": 1}, ("blind_rotate_ks_fused",) + k4_form),
+        ("blind_rotate_fused_packed", "K5 c4 + key switch", P128_C4,
+         lambda a, b: cp.blind_rotate_packed_ks_fused(a, b, *ntts, tks, P),
+         lambda a, b: cp.blind_rotate_packed_ks_fused_ref(a, b, *ntts, tks, P), True,
+         {"blind_rotate_fused_packed": 1, "keyswitch": 1},
+         ("blind_rotate_fused_packed",) + c4_form),
+        ("blind_rotate_fused_packed", "K5 c2 + key switch", P128_BATCH,
+         lambda a, b: cp.blind_rotate_packed_ks_fused(a, b, *ntts, tks, P),
+         lambda a, b: cp.blind_rotate_packed_ks_fused_ref(a, b, *ntts, tks, P), True,
+         {"blind_rotate_fused_packed": 1, "keyswitch": 1},
+         ("blind_rotate_fused_packed",) + c2_form),
+    )
+    total, out, plain_s = {"launches": {}, "samples": {}}, {}, 0.0
+    for name, label, B, kern, plain, fused_ks, launches, form in calls:
+        a, b = acc_all[:, :, :B].contiguous(), bara_all[:, :B].contiguous()
+        t0 = time.time()
+        want = plain(a, b)
+        torch.cuda.synchronize()
+        plain_s += time.time() - t0
+        if name == "blind_rotate":
+            plain_rot = want                    # K3's plain result: the key switch's input
+        cmux.reset_launches()
+        got = kern(a, b)
+        torch.cuda.synchronize()
+        counts, forms = read_counts(), dict(cmux.FORM_SAMPLES)
+        err = expect_equal(f"[p128] {label} B={B}", got, want)
+        fired = {k: v for k, v in counts["launches"].items() if v}
+        if fired != launches or forms != {form: B}:
+            raise AssertionError(f"[p128] {label} B={B}: launches {fired}, samples by form "
+                                 f"{forms}; want {launches} and {{{form}: {B}}}")
+        add_counts(total, counts)
+        ms = cuda_ms(lambda: kern(a, b), 3)
+        bound_ms = 1e3 * roof.blind_rotate_bound_s(P, 1, B, fused_ks)
+        row = {"shape": f"PARAMS_128 B={B}", "form": label, "max_abs_err": err, "ms": ms,
+               "bound_ms": bound_ms, "share_pct": 100 * bound_ms / ms}
+        out.setdefault(name, []).append(row)
+        log(f"[p128] {label} PARAMS_128 B={B}: byte-equal to plain (max |err| {err}); launches "
+            f"{fired}, samples by form {forms}; kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"(h100_bench/roofline.py), {row['share_pct']:.1f} % ({smi})")
+    err = 0
+    for B in (1, P128_BATCH):
+        acc_rot = plain_rot[:, :, :B].contiguous()
+        want = cmux.keyswitch_ref(acc_rot, tks, P)
+        rot_rows = cmux._acc_rows(acc_rot, P)
+        C = cmux._check_tks(tks, P)
+        arms = {"planned arm": lambda: cmux.keyswitch(acc_rot, tks, P),
+                "gather arm": lambda: cmux._launch_keyswitch(
+                    rot_rows, tks, P, plan=(0, cmux.gather_split(B, P.N))),
+                "tensor-core arm": lambda: cmux._launch_keyswitch(
+                    rot_rows, tks, P, plan=(1, cmux.mma_split(B, P.N, C)))}
+        times = {}
+        for arm, call in arms.items():
+            err = max(err, expect_equal(f"[p128] keyswitch C={C} B={B} {arm}", call(), want))
+            times[arm] = cuda_ms(call, 10)
+        out.setdefault("keyswitch", []).append(
+            {"shape": f"PARAMS_128 B={B}", "max_abs_err": err, "ms": times["planned arm"],
+             "ms_by_arm": times})
+        log(f"[p128] keyswitch alone PARAMS_128 (C = {C}) B={B}: every arm byte-equal to plain "
+            f"(max |err| {err}); " + ", ".join(f"{arm} {ms:.4f} ms" for arm, ms in times.items())
+            + f" ({smi})")
+    log(f"[p128] launches and samples of the checked calls {total}; the plain versions of "
+        f"the four calls {plain_s:.1f} s")
+    del sk, cloud, rows, ntts, tks
+    torch.cuda.empty_cache()
+    return total, out
 
 def _hash(ct) -> str:
     return hashlib.sha256(ct.a.cpu().numpy().astype("<i4").tobytes()
@@ -882,7 +1020,7 @@ def check_and(sk, label: str, x, y, want_bits) -> None:
 
 def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     """The gate path on the card: the batch-256 AND, fused and split routes,
-    and the golden 8-input AND; then a batch one above SMALL_BATCH_MAX. Each
+    and the golden 8-input AND; then a batch one above small_batch_max. Each
     takes the kernels bootstrap.small_batch() picks for its size. Returns each
     run's launch counts."""
     import tfhe_tpu_torch as tt
@@ -911,18 +1049,18 @@ def phase_main(sk, golden_in, x, y, bits_x, bits_y) -> dict:
     # the golden AND (8 samples) takes K5; the batch takes what small_batch() says
     small = ("blind_rotate_fused_packed", "keyswitch")
     large = ("blind_rotate_ks_fused", "blind_rotate_fused", "keyswitch")
-    for name in small + (() if bs.small_batch(BATCH) else large):
+    for name in small + (() if bs.small_batch(BATCH, sk.params) else large):
         if launches[name] < 1:
             raise AssertionError(f"the batch-{BATCH} AND and the golden AND did not launch {name}")
 
-    big = bs.SMALL_BATCH_MAX + 1
+    big = bs.waves(sk.params).small_batch_max + 1
     reps = -(-big // BATCH)
     xb, yb = lwe_concat([x] * reps)[:big], lwe_concat([y] * reps)[:big]
     cmux.reset_launches()
     check_and(sk, f"batch {big}", xb, yb, np.tile(bits_x & bits_y, reps)[:big])
     torch.cuda.synchronize()
     counts_big = read_counts()
-    log(f"[main] launch counts, AND B={big} (one above SMALL_BATCH_MAX): "
+    log(f"[main] launch counts, AND B={big} (one above small_batch_max): "
         f"{counts_big['launches']}")
     expect_routes(f"the batch-{big} AND", counts_big, large)
     return {"and": counts, "large_batch": counts_big}
@@ -1846,8 +1984,8 @@ def phase_chunk(sk, smi: str) -> None:
         finally:
             bs.batch_cap = saved
         sizes = [min(forced, B - s) for s in range(0, B, forced)]
-        want = {"blind_rotate_fused_packed": sum(bs.small_batch(b) for b in sizes),
-                "blind_rotate_ks_fused": sum(not bs.small_batch(b) for b in sizes)}
+        want = {"blind_rotate_fused_packed": sum(bs.small_batch(b, params) for b in sizes),
+                "blind_rotate_ks_fused": sum(not bs.small_batch(b, params) for b in sizes)}
         want["keyswitch"] = len(sizes)
         got = {k: counts[k] for k in want}
         if got != want:
@@ -1873,15 +2011,16 @@ def phase_native(sk, smi: str) -> None:
     t0 = time.perf_counter()
     want_a, want_b = native_ref.bootstrap_batch(sk, x.a.cpu().numpy(), x.b.cpu().numpy(), gates.MU)
     host_s = time.perf_counter() - t0
-    saved = bs.SMALL_BATCH_MAX
-    for kernel, small_max in (("blind_rotate_fused_packed", saved), ("blind_rotate_ks_fused", 0)):
-        bs.SMALL_BATCH_MAX = small_max            # 0: the batch takes K4
+    saved = bs.WAVES[params.bk_l]
+    for kernel, small_max in (("blind_rotate_fused_packed", saved.small_batch_max),
+                              ("blind_rotate_ks_fused", 0)):          # 0: the batch takes K4
+        bs.WAVES[params.bk_l] = dataclasses.replace(saved, small_batch_max=small_max)
         try:
             cmux.reset_launches()
             out = bs.bootstrap(x, gates.MU, cloud)
             torch.cuda.synchronize()
         finally:
-            bs.SMALL_BATCH_MAX = saved
+            bs.WAVES[params.bk_l] = saved
         if cmux.LAUNCHES[kernel] != 1:
             raise AssertionError(f"[native] the bootstrap of 8 did not take {kernel}: "
                                  f"{dict(cmux.LAUNCHES)}")
@@ -2615,6 +2754,10 @@ def main(argv=None) -> int:
 
     timed = phase_kernels(sk, x, dev["smi"])
     log_peak("kernels", dev["smi"])
+    p128_counts, p128_rows = phase_p128(dev["smi"])
+    for name, rows in p128_rows.items():
+        timed[name]["params128"] = rows
+    log_peak("p128", dev["smi"])
     phase_chunk(sk, dev["smi"])
     log_peak("chunk", dev["smi"])
     launches = phase_main(sk, golden_in, x, y, bits_x, bits_y)
@@ -2653,7 +2796,7 @@ def main(argv=None) -> int:
                   lambda: linalg.matmul(cma, cmb, sk.cloud), dev["smi"])
     log_peak("profile", dev["smi"])
 
-    paths = {"and": launches["and"], "large_batch": launches["large_batch"],
+    paths = {"and": launches["and"], "large_batch": launches["large_batch"], "p128": p128_counts,
              "circuits": circuit_counts, "graph": graph_counts, "linalg": linalg_counts,
              "linreg": linreg_counts,
              "apps": apps_counts, "parallel": parallel_counts}

@@ -132,7 +132,7 @@ def _zeros(shape, n=16):
 
 
 def _by_route(seen):
-    k5 = sum(b for b in seen if bs.small_batch(b))
+    k5 = sum(b for b in seen if bs.small_batch(b, pt.PARAMS_110))
     return k5, sum(seen) - k5
 
 

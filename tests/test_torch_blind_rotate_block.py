@@ -19,6 +19,7 @@ The same seeded numpy inputs go through the model, ``core.bootstrap`` (the
 plain version) and ``tfhe_tpu.ops.cmux_pallas`` in interpret mode, as
 tfhe_tpu's own tests run it on the CPU.
 """
+import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,7 +156,7 @@ class Block:
         self.phases = [0] * nbuf              # completed phases of each barrier
         self.tabs = [ntt.ntt_tables(N, p) for p in ntt.PRIMES]
         assert 4 * (self.keybuf.size * (nbuf > 0) + 8 * N + 4 + 16 + S * KOUT * N
-                    + self.rows.size) == cmux.cmux_smem_bytes(N, S, nbuf)
+                    + self.rows.size) == cmux.cmux_smem_bytes(N, S, nbuf, 2)
 
     def fetch(self, u, uses):
         """cmux_fetch_key: one bulk copy each of the slice's values and twins."""
@@ -383,9 +384,9 @@ def test_a_late_key_copy_is_caught():
 @pytest.mark.parametrize("N", [64, 128, 256, 512, 1024, 2048])
 def test_plan_fits_and_covers_every_sample_once(N):
     for B in (1, 2, 3, 5, 255, 256, 257, 2049):
-        S, nbuf = cmux.blind_rotate_plan(N)
-        assert (S, nbuf) in cmux.CMUX_FORMS
-        assert cmux.cmux_smem_bytes(N, S, nbuf) <= cmux.SMEM_MAX
+        S, nbuf = cmux.blind_rotate_plan(N, 2)
+        assert (S, nbuf) in cmux.CMUX_FORMS[2]
+        assert cmux.cmux_smem_bytes(N, S, nbuf, 2) <= cmux.SMEM_MAX
         threads = cmux.cmux_threads(N, S)
         assert threads <= 1024 and threads % 32 == 0
         blocks = -(-B // S)                              # the launch's grid
@@ -399,11 +400,11 @@ def test_smem_budget_at_params_110():
     double key buffer take 217,240 bytes of the 232,448 a block may use, and
     two blocks of one sample without buffers share an SM; at N = 2048 only
     the form without buffers fits."""
-    assert cmux.cmux_smem_bytes(1024, 2, 2) == 217240
-    assert 2 * cmux.cmux_smem_bytes(1024, 1, 0) <= cmux.SMEM_MAX
-    assert cmux.blind_rotate_plan(1024) == (2, 2)
-    assert cmux.cmux_smem_bytes(2048, 2, 2) > cmux.SMEM_MAX
-    assert cmux.blind_rotate_plan(2048)[1] == 0
+    assert cmux.cmux_smem_bytes(1024, 2, 2, 2) == 217240
+    assert 2 * cmux.cmux_smem_bytes(1024, 1, 0, 2) <= cmux.SMEM_MAX
+    assert cmux.blind_rotate_plan(1024, 2) == (2, 2)
+    assert cmux.cmux_smem_bytes(2048, 2, 2, 2) > cmux.SMEM_MAX
+    assert cmux.blind_rotate_plan(2048, 2)[1] == 0
 
 
 # ----------------------------------------------------------------- the route
@@ -411,8 +412,8 @@ def test_smem_budget_at_params_110():
 @pytest.mark.parametrize("fuseks", ["0", "1"])
 def test_bootstrap_same_bytes_on_either_side_of_small_batch_max(monkeypatch, fuseks):
     """bootstrap() of 3 samples through the small-batch wrappers
-    (SMALL_BATCH_MAX = 3) and through the one-block-per-S-samples wrappers
-    (SMALL_BATCH_MAX = 2): the same bytes, and each route calls its wrappers."""
+    (small_batch_max = 3) and through the one-block-per-S-samples wrappers
+    (small_batch_max = 2): the same bytes, and each route calls its wrappers."""
     sk = pt.keygen(pt.PARAMS_TOY, seed=5, device="cpu")
     gen = torch.Generator()
     gen.manual_seed(5)
@@ -421,9 +422,9 @@ def test_bootstrap_same_bytes_on_either_side_of_small_batch_max(monkeypatch, fus
     for name in ("blind_rotate_fused", "blind_rotate_ks_fused"):
         monkeypatch.setattr(cmux, name, lambda *a, _f=getattr(cmux, name), _n=name, **k:
                             (called.append(_n), _f(*a, **k))[1])
-    outs = []
+    outs, waves = [], bs.WAVES[2]
     for limit in (3, 2):
-        monkeypatch.setattr(bs, "SMALL_BATCH_MAX", limit)
+        monkeypatch.setitem(bs.WAVES, 2, dataclasses.replace(waves, small_batch_max=limit))
         called.clear()
         with config.overrides(TFHE_TPU_FUSEKS=fuseks):
             outs.append(bs.bootstrap(x, gates.MU, sk.cloud))
@@ -437,10 +438,11 @@ def test_bootstrap_same_bytes_on_either_side_of_small_batch_max(monkeypatch, fus
 @pytest.mark.parametrize("B,small", [
     (1, True), (30, True), (64, True), (132, True), (133, True), (192, True), (256, False),
     (264, False), (265, True), (396, True), (528, False), (660, True), (792, False),
-    (bs.SMALL_BATCH_MAX, True), (bs.SMALL_BATCH_MAX + 1, False), (1056, False), (1188, False),
+    (858, True), (859, False), (1056, False), (1188, False),
     (2048, False), (4096, False)])
 def test_route_follows_the_measured_sweep(B, small):
     """small_batch() picks, at every batch of the H100 sweep that core/bootstrap.py
     quotes, the kernel that was faster there (chip_smoke.py prints both times
     and the choice); it reads a batch and constants, no device."""
-    assert bs.small_batch(B) is small
+    assert bs.small_batch(B, pt.PARAMS_110) is small
+    assert bs.WAVES[2].small_batch_max == 858

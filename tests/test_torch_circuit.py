@@ -14,6 +14,7 @@ mul_plain (a static argument) and div through the stand-in's capture and
 replay equal ``tfhe_tpu``'s jitted circuits at PARAMS_TOY on 4-bit operands:
 a and b exact, cv to rtol 1e-6. The card's own graphs are held by
 tests/test_torch_cuda.py and chip_smoke.py's [graph] phase."""
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -132,12 +133,15 @@ def test_policy_fingerprint_moves_with_every_route(monkeypatch):
                         ("TFHE_TPU_FUSEKS", "1"), ("TFHE_TPU_NOISE_MODEL", "tracked")):
         with config.overrides(**{name: value}):
             assert config.policy_fingerprint("cpu", sk.cloud) != base, name
-    for module, name, value in ((cmux, "KS_GATHER_MAX", 0), (bs, "SMALL_BATCH_MAX", 100),
-                                (bs, "CPU_MAX_BATCH", 7), (bs, "K5_C4_MS", 2.5),
-                                (bs, "STAGE_GLUE_MS", 0.5)):
+    for module, name, value in ((cmux, "KS_GATHER_MAX", 0), (bs, "CPU_MAX_BATCH", 7)):
         with monkeypatch.context() as m:
             m.setattr(module, name, value)
             assert config.policy_fingerprint("cpu", sk.cloud) != base, name
+    for l, field, value in ((2, "small_batch_max", 100), (2, "k5_c4_ms", 2.5),
+                            (2, "stage_glue_ms", 0.5), (3, "k3_wave_ms", 9.0)):
+        with monkeypatch.context() as m:
+            m.setitem(bs.WAVES, l, dataclasses.replace(bs.WAVES[l], **{field: value}))
+            assert config.policy_fingerprint("cpu", sk.cloud) != base, (l, field)
     assert config.policy_fingerprint("cpu", sk.cloud) == base
 
 
@@ -145,6 +149,7 @@ def test_policy_fingerprint_moves_with_every_route(monkeypatch):
 
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 IN_FLIGHT = 30          # samples an H100 holds at once in K5's clusters of four, N = 1024
+P110 = pt.PARAMS_110
 
 
 @pytest.mark.parametrize("numbers,nbits,prefix", [
@@ -157,15 +162,16 @@ def test_adder_arm_by_the_cards_cost(monkeypatch, numbers, nbits, prefix):
     its arguments and the routing constants: it makes no CUDA call, which
     would raise where torch has no CUDA."""
     monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
-    assert config.lookahead_enabled(numbers, nbits, CUDA, IN_FLIGHT) is prefix
-    assert config.lookahead_enabled(numbers, nbits, "cuda:1", IN_FLIGHT) is prefix
-    assert config.lookahead_enabled(numbers, nbits, CPU, IN_FLIGHT) is False
+    assert config.lookahead_enabled(numbers, nbits, CUDA, IN_FLIGHT, P110) is prefix
+    assert config.lookahead_enabled(numbers, nbits, "cuda:1", IN_FLIGHT, P110) is prefix
+    assert config.lookahead_enabled(numbers, nbits, CPU, IN_FLIGHT, P110) is False
     assert config.lookahead_enabled(numbers, nbits) is False
     assert jconfig.lookahead_enabled(numbers, nbits) is False
     for v in ("0", "1"):
         with config.overrides(TFHE_TPU_LOOKAHEAD=v):
             for device in (CUDA, CPU, None):
-                assert config.lookahead_enabled(numbers, nbits, device, IN_FLIGHT) is (v == "1")
+                assert config.lookahead_enabled(numbers, nbits, device, IN_FLIGHT,
+                                                P110) is (v == "1")
 
 
 def test_adder_stages_and_their_prices():
@@ -175,13 +181,15 @@ def test_adder_stages_and_their_prices():
     assert config.adder_stages(1, 16) == ([2] * 16, [32, 45, 42, 36, 24, 15])
     assert config.adder_stages(3, 4) == ([6] * 4, [24, 27, 18, 9])
     assert config.adder_stages(2, 1) == ([4], [4])
-    glue = bs.STAGE_GLUE_MS
-    assert bs.stage_ms(1, IN_FLIGHT) == bs.stage_ms(30, IN_FLIGHT) == bs.K5_C4_MS + glue
-    assert bs.stage_ms(31, IN_FLIGHT) == bs.K5_TAIL_MS + glue
-    assert bs.stage_ms(132, IN_FLIGHT) == bs.K5_WAVE_MS + glue
-    assert bs.stage_ms(264, IN_FLIGHT) == bs.K3_WAVE_MS + glue
-    assert bs.stage_ms(1024, IN_FLIGHT) == 4 * bs.K3_WAVE_MS + glue
-    assert bs.stage_ms(1, 0) == bs.K3_WAVE_MS + glue             # no K5 (N > its limit)
+    w = bs.WAVES[2]
+    glue = w.stage_glue_ms
+    assert (bs.stage_ms(1, IN_FLIGHT, P110) == bs.stage_ms(30, IN_FLIGHT, P110)
+            == w.k5_c4_ms + glue)
+    assert bs.stage_ms(31, IN_FLIGHT, P110) == w.k5_tail_ms + glue
+    assert bs.stage_ms(132, IN_FLIGHT, P110) == w.k5_wave_ms + glue
+    assert bs.stage_ms(264, IN_FLIGHT, P110) == w.k3_wave_ms + glue
+    assert bs.stage_ms(1024, IN_FLIGHT, P110) == 4 * w.k3_wave_ms + glue
+    assert bs.stage_ms(1, 0, P110) == w.k3_wave_ms + glue       # no K5 (N > its limit)
 
 
 def test_adder_decisions_are_counted(monkeypatch):
@@ -194,12 +202,13 @@ def test_adder_decisions_are_counted(monkeypatch):
     monkeypatch.setattr(arith, "ADDER_ARMS", {"prefix": 0, "ripple": 0})
     asked = []
     monkeypatch.setattr(cmux_packed, "samples_in_flight",
-                        lambda N, cluster, index: asked.append((N, cluster, index)) or IN_FLIGHT)
+                        lambda N, cluster, index, l=2: asked.append((N, cluster, index, l))
+                        or IN_FLIGHT)
     cloud = SimpleNamespace(params=pt.PARAMS_110)
     assert arith._latency_policy(1, 16, "cuda:0", cloud) is True
     assert arith._latency_policy(64, 16, "cuda:0", cloud) is False
     assert arith._latency_policy(1, 16, "cpu", cloud) is False
-    assert asked == [(1024, 4, 0)] * 2
+    assert asked == [(1024, 4, 0, 2)] * 2
     with config.overrides(TFHE_TPU_LOOKAHEAD="0"):
         assert arith._latency_policy(1, 16, "cuda:0", cloud) is False
     with config.overrides(TFHE_TPU_LOOKAHEAD="1"):

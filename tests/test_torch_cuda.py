@@ -79,7 +79,7 @@ def test_kernels_match_plain(cuda, params):
 
 
 @pytest.mark.parametrize("params", [tt.PARAMS_TOY, tt.PARAMS_SMALL], ids=["toy", "small"])
-@pytest.mark.parametrize("form", cmux.CMUX_FORMS, ids=str)
+@pytest.mark.parametrize("form", cmux.CMUX_FORMS[2], ids=str)
 def test_forms_match_plain_at_ragged_batches(cuda, params, form):
     """Every form of the kernels that hold S samples a block (K1, K2, K3),
     forced, at batches that fill the last block (2 * S) and leave it short
@@ -110,10 +110,10 @@ def test_planned_form_at_every_ring_size(cuda, N):
     shared memory as the Python plan counts it, and K1 and K3 byte-equal to
     plain on a batch that leaves the last block short."""
     params = dataclasses.replace(tt.PARAMS_TOY, N=N, n=3)
-    S, nbuf = cmux.blind_rotate_plan(N)
+    S, nbuf = cmux.blind_rotate_plan(N, 2)
     size = ctypes.c_int(0)
-    _build.check(_build.library().tfhe_cmux_smem_bytes(N, S, nbuf, ctypes.byref(size)))
-    assert size.value == cmux.cmux_smem_bytes(N, S, nbuf) <= cmux.SMEM_MAX
+    _build.check(_build.library().tfhe_cmux_smem_bytes(N, 2, S, nbuf, ctypes.byref(size)))
+    assert size.value == cmux.cmux_smem_bytes(N, S, nbuf, 2) <= cmux.SMEM_MAX
     rng = np.random.RandomState(N)
     bk, sh = _random_bk(params, params.n, rng, cuda)
     dec_t = _i32(rng, (params.kpl, N, 5), -params.halfBg, params.halfBg).to(cuda)
@@ -188,7 +188,7 @@ def test_k5_matches_plain(cuda, params, B):
     versions, each launch counted; n is cut to 4 steps at PARAMS_110. "max" is
     the largest batch the bootstrap routes to K5."""
     if isinstance(B, str):
-        B = bs.SMALL_BATCH_MAX + (B == "max+1")
+        B = bs.WAVES[params.bk_l].small_batch_max + (B == "max+1")
     rng = np.random.RandomState(B)
     n = min(params.n, 4 if params.N == 1024 else params.n)
     bk, sh = _random_bk(params, n, rng, cuda, layout="ntt")
@@ -214,12 +214,12 @@ def test_small_cluster_follows_what_the_card_holds(cuda):
     """A batch that fits one wave of 4-CTA clusters gets them, a larger one
     clusters of 2, of which the card holds more at once."""
     N, dev = tt.PARAMS_110.N, torch.cuda.current_device()
-    four, two = (cmux_packed.samples_in_flight(N, c, dev) for c in (4, 2))
+    four, two = (cmux_packed.samples_in_flight(N, c, dev, 2) for c in (4, 2))
     assert 1 <= four < two
-    assert cmux_packed.small_cluster(1, N, cuda) == 4
-    assert cmux_packed.small_cluster(four, N, cuda) == 4
-    assert cmux_packed.small_cluster(four + 1, N, cuda) == 2
-    assert cmux_packed.small_cluster(two + 1, N, cuda) == 2
+    assert cmux_packed.small_cluster(1, N, cuda, 2) == 4
+    assert cmux_packed.small_cluster(four, N, cuda, 2) == 4
+    assert cmux_packed.small_cluster(four + 1, N, cuda, 2) == 2
+    assert cmux_packed.small_cluster(two + 1, N, cuda, 2) == 2
 
 
 @pytest.mark.parametrize("arm", ["0", "1"])

@@ -93,7 +93,7 @@ class _Spy:
 
 @pytest.mark.parametrize("fuseks", ["0", "1"], ids=["split", "fused"])
 def test_small_batches_route_to_k5(toy_keys, monkeypatch, fuseks):
-    """A flat batch <= SMALL_BATCH_MAX reaches a K5 wrapper and a larger one
+    """A flat batch <= small_batch_max reaches a K5 wrapper and a larger one
     does not. (Both routes against tfhe_tpu: test_torch_bootstrap.py, whose
     batch of 96 takes K5, and the gate and circuit tests.)"""
     params = pt.PARAMS_TOY
@@ -105,14 +105,15 @@ def test_small_batches_route_to_k5(toy_keys, monkeypatch, fuseks):
     monkeypatch.setattr(cmux_packed, names[0], small_spy)
     monkeypatch.setattr(cmux, names[1], large_spy)
     rng = np.random.RandomState(31)
-    for B, hits in ((2, (1, 0)), (bs.SMALL_BATCH_MAX, (2, 0)), (bs.SMALL_BATCH_MAX + 1, (2, 1))):
+    top = bs.WAVES[params.bk_l].small_batch_max
+    for B, hits in ((2, (1, 0)), (top, (2, 0)), (top + 1, (2, 1))):
         x = lwe.LweCiphertext(_t(_rand_i32(rng, (B, params.n))), _t(_rand_i32(rng, (B,))),
                               torch.zeros(B))
         with config.overrides(TFHE_TPU_FUSEKS=fuseks):
             got = bs.bootstrap(x, gates.MU, cloud)
         assert got.a.shape == (B, params.n)
         assert (small_spy.calls, large_spy.calls) == hits, B
-    assert bs.SMALL_BATCH_MAX >= 2
+    assert top >= 2
 
 
 # ------------------------------------------------------------------ lwe

@@ -72,7 +72,7 @@ ROUTES = {("1", True): "k5", ("1", False): "k4", ("0", True): "k5_woks", ("0", F
 @pytest.mark.parametrize("fuseks,small", list(ROUTES))
 def test_gate2_spans_under_the_profiler(toy, monkeypatch, fuseks, small):
     sk, x, y = toy
-    monkeypatch.setattr(bs, "small_batch", lambda B: small)
+    monkeypatch.setattr(bs, "small_batch", lambda B, params=None: small)
     with config.overrides(TFHE_TPU_FUSEKS=fuseks):
         with profile() as prof:
             with record_function("caller"):
@@ -87,7 +87,8 @@ def test_gate2_spans_under_the_profiler(toy, monkeypatch, fuseks, small):
     assert {r.root for r in recs} == {gate.id}
     assert len({r.id for r in recs}) == 4
     assert gate.attrs == {"kind": "XOR", "batch": 4}
-    assert boot.attrs == {"route": ROUTES[fuseks, small], "batch": 4, "parts": 1}
+    assert boot.attrs == {"route": ROUTES[fuseks, small], "form": "plain", "l": 2, "batch": 4,
+                          "parts": 1}
     for r in recs:
         kids = [c for c in recs if c.parent == r.id]
         assert r.self_ns == r.duration_ns - sum(c.duration_ns for c in kids) >= 0
@@ -107,10 +108,10 @@ class _Library:
         return lambda *args: 0
 
 
-@pytest.mark.parametrize("small,wrapper,kernel", [
-    (False, "blind_rotate_ks_fused", "blind_rotate_ks_fused"),
-    (True, "blind_rotate_packed_ks_fused", "blind_rotate_fused_packed")])
-def test_kernel_wrapper_span_beside_its_launch(toy, monkeypatch, small, wrapper, kernel):
+@pytest.mark.parametrize("small,wrapper,kernel,form", [
+    (False, "blind_rotate_ks_fused", "blind_rotate_ks_fused", "2/2"),
+    (True, "blind_rotate_packed_ks_fused", "blind_rotate_fused_packed", "c2")])
+def test_kernel_wrapper_span_beside_its_launch(toy, monkeypatch, small, wrapper, kernel, form):
     """The CUDA branch of a wrapper, reached with CPU tensors and nothing
     launched: its checks, plans and library call are the span
     tfhe.kernel.<wrapper>, inside the bootstrap, one per counted launch."""
@@ -119,15 +120,15 @@ def test_kernel_wrapper_span_beside_its_launch(toy, monkeypatch, small, wrapper,
         monkeypatch.setattr(mod, "_on_cuda", lambda *t: True)
         monkeypatch.setattr(mod, "library", _Library)
         monkeypatch.setattr(mod, "_stream", lambda t: 0)
-    monkeypatch.setattr(cmux_packed, "small_cluster", lambda B, N, device: 2)
-    monkeypatch.setattr(bs, "small_batch", lambda B: small)
+    monkeypatch.setattr(cmux_packed, "small_cluster", lambda B, N, device, l: 2)
+    monkeypatch.setattr(bs, "small_batch", lambda B, params=None: small)
     cmux.reset_launches()
     with config.overrides(TFHE_TPU_FUSEKS="1"), profile():
         gates.gate2("AND", x, y, sk.cloud)
     recs = _by_name(profiling.spans())
     (k,) = recs[f"tfhe.kernel.{wrapper}"]
     (boot,) = recs["tfhe.bootstrap"]
-    assert k.parent == boot.id and k.attrs == {"batch": 4}
+    assert k.parent == boot.id and k.attrs == {"batch": 4, "l": 2, "form": form}
     assert cmux.LAUNCHES[kernel] == cmux.LAUNCHES["keyswitch"] == 1
     assert cmux.SAMPLES[kernel] == 4
     cmux.reset_launches()

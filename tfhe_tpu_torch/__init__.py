@@ -27,7 +27,8 @@ Layer map (the module names follow ``tfhe_tpu``):
                      program's spans, kept while a profiler records)
 """
 
-from .params import TfheParams, PARAMS_110, PARAMS_TOY, PARAMS_SMALL, PARAMS_SMALL_NOISY
+from .params import (TfheParams, PARAMS_110, PARAMS_128, PARAMS_TOY, PARAMS_TOY_L3, PARAMS_SMALL,
+                     PARAMS_SMALL_NOISY)
 from .core.keys import keygen, keygen_reference, SecretKeySet, CloudKey
 from .core.lwe import LweCiphertext
 from .core.crypt import encrypt_bits, decrypt_bits, decrypt_phase, lwe_encrypt, lwe_phase

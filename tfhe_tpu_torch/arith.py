@@ -172,7 +172,8 @@ def _clone(out):
 class _Entry:
     """A key's state: called `calls` times eagerly (graph None; its identity
     arguments held weakly), or captured (the graph, its static inputs and
-    outputs, and the launches and adder decisions each replay makes). `held`
+    outputs, and the launches, samples by form and adder decisions each
+    replay makes). `held`
     maps the cache keys of the plans its eager calls and its capture read to
     the tensors (``core/lwe.keeping``)."""
     refs: tuple
@@ -184,6 +185,7 @@ class _Entry:
     launches: dict = None
     samples: dict = None
     arms: dict = None
+    forms: dict = None
 
 
 class CircuitGraphs:
@@ -277,6 +279,7 @@ class CircuitGraphs:
         static = [s if s is not None else a for s, a in zip(inputs, args)]
         graph = self.graph(device)
         launches, samples, arms = dict(cmux.LAUNCHES), dict(cmux.SAMPLES), dict(ADDER_ARMS)
+        forms = dict(cmux.FORM_SAMPLES)
         try:
             with span("tfhe.circuit.capture"), keeping(warm.held):
                 out = graph.capture(lambda: f(*static))
@@ -288,12 +291,16 @@ class CircuitGraphs:
             d_launches = {k: cmux.LAUNCHES[k] - v for k, v in launches.items()}
             d_samples = {k: cmux.SAMPLES[k] - v for k, v in samples.items()}
             d_arms = {k: ADDER_ARMS[k] - v for k, v in arms.items()}
+            d_forms = {k: v - forms.get(k, 0) for k, v in cmux.FORM_SAMPLES.items()
+                       if v != forms.get(k, 0)}
             cmux.LAUNCHES.update(launches)
             cmux.SAMPLES.update(samples)
             ADDER_ARMS.update(arms)
+            cmux.FORM_SAMPLES.clear()
+            cmux.FORM_SAMPLES.update(forms)
         _check_outputs(out)
         entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, d_launches, d_samples,
-                       d_arms)
+                       d_arms, d_forms)
         self._remember(key, entry)
         return entry
 
@@ -310,6 +317,8 @@ class CircuitGraphs:
             cmux.SAMPLES[k] += entry.samples[k]
         for k, v in entry.arms.items():
             ADDER_ARMS[k] += v
+        for k, v in entry.forms.items():
+            cmux.FORM_SAMPLES[k] = cmux.FORM_SAMPLES.get(k, 0) + v
         return _clone(entry.out)
 
 
@@ -422,8 +431,8 @@ def _latency_policy(numbers: int, nbits: int, device, cloud) -> bool:
     in_flight = 0
     if device.type == "cuda" and cloud.params.N <= cmux_packed.N_MAX:
         index = device.index if device.index is not None else torch.cuda.current_device()
-        in_flight = cmux_packed.samples_in_flight(cloud.params.N, 4, index)
-    prefix = lookahead_enabled(numbers, nbits, device, in_flight)
+        in_flight = cmux_packed.samples_in_flight(cloud.params.N, 4, index, cloud.params.bk_l)
+    prefix = lookahead_enabled(numbers, nbits, device, in_flight, cloud.params)
     ADDER_ARMS["prefix" if prefix else "ripple"] += 1
     return prefix
 

@@ -80,13 +80,15 @@ def adder_stages(numbers: int, nbits: int) -> tuple:
     return ripple, [b for b in prefix if b]
 
 
-def lookahead_enabled(numbers: int, nbits: int, device=None, in_flight: int = 0) -> bool:
+def lookahead_enabled(numbers: int, nbits: int, device=None, in_flight: int = 0,
+                      params=None) -> bool:
     """Parallel-prefix (Kogge-Stone) adders instead of ripple ones for
     `numbers` independent nbits integers on `device`. TFHE_TPU_LOOKAHEAD=0/1
     forces either arm. Auto: ripple on the CPU (and with no device), as
     ``tfhe_tpu``, so the CPU route stays byte-equal to it; on CUDA the arm
-    whose stages (``adder_stages``) cost less by ``core.bootstrap.stage_ms``,
-    with `in_flight` the samples the card holds at once in clusters of four.
+    whose stages (``adder_stages``) cost less by ``core.bootstrap.stage_ms``
+    at the keys' parameter set `params` (needed there), with `in_flight` the
+    samples the card holds at once in clusters of four.
 
     Why by the card's cost. A bootstrap on the H100 costs by dependent stage,
     not by sample: K5 runs 500 dependent CMux steps whatever its batch, ~1.9
@@ -104,8 +106,8 @@ def lookahead_enabled(numbers: int, nbits: int, device=None, in_flight: int = 0)
         return False
     from .core.bootstrap import stage_ms
     ripple, prefix = adder_stages(numbers, nbits)
-    return (sum(stage_ms(b, in_flight) for b in prefix)
-            < sum(stage_ms(b, in_flight) for b in ripple))
+    return (sum(stage_ms(b, in_flight, params) for b in prefix)
+            < sum(stage_ms(b, in_flight, params) for b in ripple))
 
 
 def septet_enabled(nbits: int) -> bool:
@@ -152,9 +154,8 @@ def policy_fingerprint(device=None, cloud=None) -> tuple:
     return (flag("TFHE_TPU_LOOKAHEAD"), flag("TFHE_TPU_SEPTET"), flag("TFHE_TPU_FUSEKS"),
             flag("TFHE_TPU_NOISE_MODEL", "average"),
             cmux.KS_GATHER_MAX, cmux.KS_GATHER_BLOCKS, cmux.KS_GATHER_MIN_COEFFS,
-            cmux.KS_MMA_BLOCKS, cmux.CMUX_FORMS,
-            bs.SMALL_BATCH_MAX, bs.K5_WAVE, bs.K5_WAVE_MS, bs.K5_TAIL_MS, bs.K3_WAVE,
-            bs.K3_WAVE_MS, bs.K5_C4_MS, bs.STAGE_GLUE_MS, cap)
+            cmux.KS_MMA_BLOCKS, tuple(cmux.CMUX_FORMS.items()),
+            tuple(bs.WAVES.items()), cap)
 
 
 def ref_dir() -> str:

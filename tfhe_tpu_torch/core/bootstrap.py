@@ -21,12 +21,13 @@ and take these plain pieces for CPU tensors. Every route gives the same bits:
   a cluster of four or two CTAs per sample: every stage of a serial circuit,
   and the gate batches that leave the other kernel's last wave mostly empty)
   or the kernels of ``ops.cmux`` that hold two whole samples in a block
-  (K3/K4: every batch above ``SMALL_BATCH_MAX``, and the batches below it
-  that fill their last wave).
+  (K3/K4: every batch above its gadget length's ``small_batch_max``, and
+  the batches below it that fill their last wave).
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -38,64 +39,104 @@ from ..ops import cmux, cmux_packed
 from ..utils.profiling import span, spanned
 from .lwe import LweCiphertext
 
-# Which blind rotate a flat batch takes. Measured on an H100 (132 SMs, 700 W)
-# at PARAMS_110 by chip_smoke.py's sweep of B = 1 to 4096: both kernels work
-# in waves. K5 holds K5_WAVE = 132 samples at once (two CTAs a sample, two
-# CTAs an SM) and a wave takes 3.5-3.7 ms; a last wave of at most half that
-# (one CTA an SM) 1.9-2.3 ms. K3/K4 hold K3_WAVE = 264 (two samples a block,
-# one block an SM) and a wave takes 6.1-6.2 ms: 23.3 us a sample against
-# K5's 27, but a wave twice as long. So K3/K4 win wherever their last wave
-# is full enough (B = 264: 6.15 against 7.36 ms; 528: 12.34 against 14.38;
-# 792: 18.49 against 21.47) and lose between (192: 6.16 against 5.70; 265:
-# 12.34 against 9.23; 660: 18.58 against 17.97), and from SMALL_BATCH_MAX on
-# they win or tie at every batch (1056: 24.73 against 28.43; 2048: 49.31
-# against 56.30; 4096: 98.5 against 110.2). small_batch() compares the two
-# sums of waves with these times; the sweep prints its choice beside the
-# measured times (PERF.md, "Findings").
-SMALL_BATCH_MAX = 858
-K5_WAVE, K5_WAVE_MS, K5_TAIL_MS = 132, 3.6, 2.1
-K3_WAVE, K3_WAVE_MS = 264, 6.2
-# One stage of a serial circuit on the same card. K5 in clusters of four CTAs
-# (``cmux_packed.small_cluster``: the batches the card holds at once that
-# way, 30 samples at N = 1024) takes K5_C4_MS whatever the batch: 1.830 ms
-# at B = 1, 1.845 at 30, its 500 dependent CMux steps and not its samples
-# set the time. The key switch and the glue kernels around a bootstrap add
-# STAGE_GLUE_MS: add16 replayed, 16 stages of 2 samples, takes 30.6-31.6 ms,
-# ~1.94 ms a stage. Left out: a stage whose key switch runs apart from its
-# blind rotate (a prefix level, a MUX: ``key_switch``, torch._int_mm on the
-# card) pays ~0.75 ms more, so the estimate favours the prefix arm where the
-# two are close (PERF.md, PR 14).
-K5_C4_MS, STAGE_GLUE_MS = 1.84, 0.1
+@dataclass(frozen=True)
+class Waves:
+    """How one gadget length's blind rotates cost on the card, by batch.
+    Both kernels work in waves: K5 (clusters of two CTAs) holds `k5_wave`
+    samples at once, a wave takes `k5_wave_ms` and a last wave of at most half
+    that `k5_tail_ms`; K3/K4 hold `k3_wave` and a wave takes `k3_wave_ms`.
+    K5 in clusters of four (``cmux_packed.small_cluster``: the samples the card
+    holds at once that way) takes `k5_c4_ms` whatever the batch; the key
+    switch and the glue kernels around a bootstrap add `stage_glue_ms`.
+    Batches above `small_batch_max` take K3/K4."""
+    small_batch_max: int
+    k5_wave: int
+    k5_wave_ms: float
+    k5_tail_ms: float
+    k3_wave: int
+    k3_wave_ms: float
+    k5_c4_ms: float
+    stage_glue_ms: float
 
 
-def k5_ms(B: int) -> float:
+# The routing values by gadget length l, as ``cmux.CMUX_FORMS``. The sizes of
+# the waves follow from the forms' occupancy, their times are measured.
+WAVES = {
+    # PARAMS_110, measured on an H100 (132 SMs, 700 W) by chip_smoke.py's sweep
+    # of B = 1 to 4096. K5 holds 132 samples at once (two CTAs a sample, two
+    # CTAs an SM) and a wave takes 3.5-3.7 ms; a last wave of at most half that
+    # (one CTA an SM) 1.9-2.3 ms. K3/K4 hold 264 (two samples a block, one
+    # block an SM) and a wave takes 6.1-6.2 ms: 23.3 us a sample against K5's
+    # 27, but a wave twice as long. So K3/K4 win wherever their last wave is
+    # full enough (B = 264: 6.15 against 7.36 ms; 528: 12.34 against 14.38;
+    # 792: 18.49 against 21.47) and lose between (192: 6.16 against 5.70; 265:
+    # 12.34 against 9.23; 660: 18.58 against 17.97), and from 858 on they win
+    # or tie at every batch (1056: 24.73 against 28.43; 2048: 49.31 against
+    # 56.30; 4096: 98.5 against 110.2). One stage of a serial circuit: K5 in
+    # clusters of four (30 samples at N = 1024) takes 1.830 ms at B = 1, 1.845
+    # at 30, its 500 dependent CMux steps and not its samples set the time;
+    # add16 replayed, 16 stages of 2 samples, takes 30.6-31.6 ms, ~1.94 ms a
+    # stage. Left out: a stage whose key switch runs apart from its blind
+    # rotate (a prefix level, a MUX: ``key_switch``, torch._int_mm on the
+    # card) pays ~0.75 ms more, so the estimate favours the prefix arm where
+    # the two are close (PERF.md, section 6).
+    2: Waves(small_batch_max=858, k5_wave=132, k5_wave_ms=3.6, k5_tail_ms=2.1,
+             k3_wave=264, k3_wave_ms=6.2, k5_c4_ms=1.84, stage_glue_ms=0.1),
+    # PARAMS_128 (l = 3, n = 630, N = 1024), from a sweep of B = 1 to 4096 on
+    # an H100 (700 W) (PERF.md, section 6). The waves hold as many samples as at
+    # l = 2: K5 in clusters of two still fits two CTAs an SM (92 KB each), 132
+    # samples, and K3/K4's form (2, 1) one block of two samples an SM, 264. A
+    # K5 wave takes 6.0-6.6 ms, a last wave of at most half that 3.0-4.1; a
+    # K3/K4 wave 9.8-10.1 ms; K5 in clusters of four 2.92-2.99 ms up to 30
+    # samples. The measured better route at each batch of the sweep is the one
+    # small_batch picks, but at 858 (K5 39.2 against K3 39.5 ms); close calls:
+    # 660 (K5 30.4 against 29.7, K3 taken) and 858.
+    3: Waves(small_batch_max=858, k5_wave=132, k5_wave_ms=6.3, k5_tail_ms=3.6,
+             k3_wave=264, k3_wave_ms=10.0, k5_c4_ms=2.95, stage_glue_ms=0.1),
+}
+
+
+def waves(params: TfheParams) -> Waves:
+    """The routing values of `params`' gadget length. A set the kernels do
+    not take (another l: the CPU path only, where both routes are the same
+    plain pieces) routes as l = 2."""
+    return WAVES.get(params.bk_l, WAVES[2])
+
+
+def k5_ms(B: int, params: TfheParams) -> float:
     """K5's time for a flat batch of B in clusters of two, by its waves."""
-    full, tail = divmod(B, K5_WAVE)
-    return full * K5_WAVE_MS + (0.0 if tail == 0 else
-                                K5_TAIL_MS if 2 * tail <= K5_WAVE else K5_WAVE_MS)
+    w = waves(params)
+    full, tail = divmod(B, w.k5_wave)
+    return full * w.k5_wave_ms + (0.0 if tail == 0 else
+                                  w.k5_tail_ms if 2 * tail <= w.k5_wave else w.k5_wave_ms)
 
 
-def k3_ms(B: int) -> float:
+def k3_ms(B: int, params: TfheParams) -> float:
     """K3's (and K4's) time for a flat batch of B, by its waves."""
-    return -(-B // K3_WAVE) * K3_WAVE_MS
+    w = waves(params)
+    return -(-B // w.k3_wave) * w.k3_wave_ms
 
 
-def small_batch(B: int) -> bool:
+def small_batch(B: int, params: TfheParams) -> bool:
     """True when the small-batch blind rotate (K5) is the faster one for a
-    flat batch of B samples, by the measured wave times above."""
-    return B <= SMALL_BATCH_MAX and k5_ms(B) <= k3_ms(B)
+    flat batch of B samples of `params`, by the measured wave times of
+    ``WAVES``; the sweep in chip_smoke.py prints this choice beside the
+    measured times (PERF.md, "Findings")."""
+    return B <= waves(params).small_batch_max and k5_ms(B, params) <= k3_ms(B, params)
 
 
-def stage_ms(B: int, in_flight: int) -> float:
-    """The estimated time of one bootstrap of a flat batch of B on the card,
-    by the route it takes: K5 in clusters of four up to `in_flight` samples
-    (``cmux_packed.samples_in_flight(N, 4, card)``, 0 where K5 cannot run),
-    else the blind rotate ``small_batch`` picks; then the key switch and glue."""
+def stage_ms(B: int, in_flight: int, params: TfheParams) -> float:
+    """The estimated time of one bootstrap of a flat batch of B of `params`
+    on the card, by the route it takes: K5 in clusters of four up to
+    `in_flight` samples (``cmux_packed.samples_in_flight(N, 4, card, l)``, 0
+    where K5 cannot run), else the blind rotate ``small_batch`` picks; then
+    the key switch and glue."""
+    w = waves(params)
     if B <= in_flight:
-        rotate = K5_C4_MS
+        rotate = w.k5_c4_ms
     else:
-        rotate = k5_ms(B) if in_flight and small_batch(B) else k3_ms(B)
-    return rotate + STAGE_GLUE_MS
+        rotate = k5_ms(B, params) if in_flight and small_batch(B, params) else k3_ms(B, params)
+    return rotate + w.stage_glue_ms
 
 
 # ------------------------------------------------------------------ pieces
@@ -275,7 +316,7 @@ def _bootstrap_variance(params: TfheParams) -> float:
 
 
 def _small(B: int, params: TfheParams) -> bool:
-    return params.N <= cmux_packed.N_MAX and small_batch(B)
+    return params.N <= cmux_packed.N_MAX and small_batch(B, params)
 
 
 def _route(B: int, params: TfheParams, fused: bool) -> str:
@@ -284,6 +325,18 @@ def _route(B: int, params: TfheParams, fused: bool) -> str:
     if fused:
         return "k5" if _small(B, params) else "k4"
     return "k5_woks" if _small(B, params) else "k3"
+
+
+def _form(route: str, B: int, params: TfheParams, device: torch.device) -> str:
+    """The form of the blind rotate of `route` for a batch of B, as its
+    wrapper's span names it: "S/nbuf" for K3/K4, "c4" or "c2" for K5;
+    "plain" where the plain version runs (CPU tensors, or a set the kernels
+    do not take)."""
+    if device.type != "cuda" or params.bk_l not in cmux.CMUX_FORMS:
+        return "plain"
+    if route.startswith("k5"):
+        return f"c{cmux_packed.small_cluster(B, params.N, device, params.bk_l)}"
+    return cmux.form_name(*cmux.blind_rotate_plan(params.N, params.bk_l))
 
 
 # ------------------------------------------------------------------ chunks
@@ -327,14 +380,16 @@ def _chunked(impl, x: LweCiphertext, mu, cloud, woks: bool = False):
     """impl(x, mu, cloud) over equal chunks of batch_cap() samples and a
     remainder, outputs concatenated (an LweCiphertext, or a tuple of tensors).
     A per-sample mu is split with the samples. The span ``tfhe.bootstrap``
-    names the route of the first chunk (`woks`: impl stops before the key
-    switch), the batch and the chunks."""
+    names the route and form of the first chunk (`woks`: impl stops before
+    the key switch), the gadget length, the batch and the chunks."""
     B = x.b.shape[0]
     cap = batch_cap(x.device, cloud)
     with span("tfhe.bootstrap") as sp:
         if sp:
             fused = not woks and _fused(x, cloud)
-            sp.set(route=_route(min(B, cap), cloud.params, fused), batch=B, parts=-(-B // cap))
+            route = _route(min(B, cap), cloud.params, fused)
+            sp.set(route=route, form=_form(route, min(B, cap), cloud.params, x.device),
+                   l=cloud.params.bk_l, batch=B, parts=-(-B // cap))
         if B <= cap:
             return impl(x, mu, cloud)
         per_sample = isinstance(mu, torch.Tensor) and mu.dim() > 0 and mu.shape[0] == B

@@ -25,14 +25,18 @@
 //
 // What bounds the blind rotate on an H100: int32 instructions. Every sample
 // needs the whole bootstrapping key, value and Shoup twin, 2 x 32.8 MB =
-// 65.5 MB at PARAMS_110, once per bootstrap; blocks run the steps in roughly
-// the same order, so a slice is shared in L2 by the blocks in flight, and a
-// block that stages it reads it once for its S samples. The transforms,
+// 65.5 MB at PARAMS_110 (123.9 MB at PARAMS_128), once per bootstrap; blocks
+// run the steps in roughly the same order, so a slice is shared in L2 by the
+// blocks in flight, and a block that stages it reads it once for its S
+// samples. The transforms,
 // the forms (S samples a block, key slices staged in shared memory or read
 // from L2) and what each costs are described in extern_product.cuh;
-// ops/cmux.py blind_rotate_plan chooses the form by N. 6.15 ms at B = 256 and
+// ops/cmux.py blind_rotate_plan chooses the form by N and the gadget length
+// l (a template parameter, 2 or 3: kOut * l digit rows). 6.15 ms at B = 256 and
 // 49.3 ms at 2048 at PARAMS_110 on an H100 (700 W); its int32 operations alone
-// would take 3.9 and 31.3 ms at the card's peak, 64 % of that.
+// would take 3.9 and 31.3 ms at the card's peak, 64 % of that. At PARAMS_128
+// (l = 3, 630 steps, the form (2, 1)) 10.0 and 79.2 ms, 67-68 % of 6.7 and
+// 53.7 ms.
 //
 // Key switch (ks_gather_kernel, ks_mma_kernel, ks_finish_kernel): the TPU
 // version multiplies a one-hot digit matrix by the int8 limb table on the
@@ -59,7 +63,6 @@
 
 #include "extern_product.cuh"
 
-using tfhe::kKpl;
 using tfhe::kOut;
 using tfhe::kPrimes;
 
@@ -70,16 +73,16 @@ constexpr int kSmemDefault = 48 * 1024;
 template <class L>
 constexpr int min_blocks() { return L::kNbuf == 0 && L::NT <= 512 ? 2 : 1; }
 
-// One external product per sample: dec int32[B][4][N] signed digits in
-// [-Bg/2, Bg/2), out int32[B][2][N]; bk/bksh uint32[2][N][8]. Block b holds
-// samples b*S .. b*S + S-1.
-template <int LOGN, int S, int NBUF>
-__global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
-                                  (min_blocks<tfhe::CmuxBlock<LOGN, S, NBUF>>()))
+// One external product per sample: dec int32[B][2*GL][N] signed digits in
+// [-Bg/2, Bg/2), out int32[B][2][N]; bk/bksh uint32[2][N][4*GL]. Block b
+// holds samples b*S .. b*S + S-1.
+template <int LOGN, int GL, int S, int NBUF>
+__global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, GL, S, NBUF>::NT),
+                                  (min_blocks<tfhe::CmuxBlock<LOGN, GL, S, NBUF>>()))
     cmux_delta_kernel(const int32_t* __restrict__ dec, const uint32_t* __restrict__ bk,
                       const uint32_t* __restrict__ bksh, const uint32_t* __restrict__ tab,
                       int32_t* __restrict__ out, int B) {
-  using L = tfhe::CmuxBlock<LOGN, S, NBUF>;
+  using L = tfhe::CmuxBlock<LOGN, GL, S, NBUF>;
   constexpr int N = L::N;
   extern __shared__ __align__(128) uint32_t smem[];
   const int first = blockIdx.x * S;
@@ -88,7 +91,7 @@ __global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
   tfhe::cmux_fetch_key<L>(smem, bk, bksh, 1, NBUF > 1 ? kPrimes : 0);
   __syncthreads();
   auto digits = [&](int s, int row, int q, uint32_t p, uint32_t (&v)[8]) {
-    const int32_t* d = dec + ((size_t)(first + s) * kKpl + row) * N + q;
+    const int32_t* d = dec + ((size_t)(first + s) * L::KPL + row) * N + q;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int32_t x = first + s < B ? __ldg(d + j * L::EIGHTH) : 0;
@@ -96,7 +99,7 @@ __global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
     }
   };
   uint32_t delta[4];
-  tfhe::extern_product<LOGN, S, NBUF>(digits, smem, bk, bksh, 0, 1, delta);
+  tfhe::extern_product<LOGN, GL, S, NBUF>(digits, smem, bk, bksh, 0, 1, delta);
   const int t = threadIdx.x;            // polynomial (t / (N/4)) % 2 of sample t / (N/2)
   if (first + t / L::HALF < B) {
     uint32_t* o = reinterpret_cast<uint32_t*>(out) + (size_t)first * kOut * N +
@@ -107,15 +110,15 @@ __global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
 }
 
 // n CMux steps: acc int32[B][2][N] in place, bara int32[B][n] in [0, 2N),
-// bk/bksh uint32[n][2][N][8]. Block b holds samples b*S .. b*S + S-1.
-template <int LOGN, int S, int NBUF>
-__global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
-                                  (min_blocks<tfhe::CmuxBlock<LOGN, S, NBUF>>()))
+// bk/bksh uint32[n][2][N][4*GL]. Block b holds samples b*S .. b*S + S-1.
+template <int LOGN, int GL, int S, int NBUF>
+__global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, GL, S, NBUF>::NT),
+                                  (min_blocks<tfhe::CmuxBlock<LOGN, GL, S, NBUF>>()))
     blind_rotate_kernel(int32_t* __restrict__ acc_io, const int32_t* __restrict__ bara,
                         const uint32_t* __restrict__ bk, const uint32_t* __restrict__ bksh,
                         const uint32_t* __restrict__ tab, int B, int n, int bgbit,
                         uint32_t offset) {
-  using L = tfhe::CmuxBlock<LOGN, S, NBUF>;
+  using L = tfhe::CmuxBlock<LOGN, GL, S, NBUF>;
   constexpr int N = L::N;
   extern __shared__ __align__(128) uint32_t smem[];
   uint32_t* acc = smem + L::ACC;                    // [S][2][N]
@@ -142,8 +145,9 @@ __global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
     a_next = mine >= 0 && step + 1 < n ? __ldg(bara + (size_t)mine * n + step + 1) : 0;
     // signed digits of X^a * acc - acc, row c*l + d, as residues mod p
     auto digits = [&](int s, int row, int q, uint32_t p, uint32_t (&v)[8]) {
-      const uint32_t* ac = acc + (s * kOut + (row >> 1)) * N;
-      const int sh = 32 - ((row & 1) + 1) * bgbit;
+      const int c = GL == 2 ? row >> 1 : row / GL, d = GL == 2 ? row & 1 : row % GL;
+      const uint32_t* ac = acc + (s * kOut + c) * N;
+      const int sh = 32 - (d + 1) * bgbit;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int i = q + j * L::EIGHTH;
@@ -156,7 +160,7 @@ __global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, S, NBUF>::NT),
       }
     };
     uint32_t delta[4];
-    tfhe::extern_product<LOGN, S, NBUF>(digits, smem, bk, bksh, step, n, delta);
+    tfhe::extern_product<LOGN, GL, S, NBUF>(digits, smem, bk, bksh, step, n, delta);
     uint32_t* ac = acc + tid / L::QUARTER * N + tid % L::QUARTER;
 #pragma unroll
     for (int j = 0; j < 4; ++j) ac[j * L::QUARTER] += delta[j];
@@ -490,9 +494,9 @@ struct CmuxCall {
   int* smem_bytes;
 };
 
-template <int LOGN, int S, int NBUF>
+template <int LOGN, int GL, int S, int NBUF>
 cudaError_t launch_form(const CmuxCall& c) {
-  using L = tfhe::CmuxBlock<LOGN, S, NBUF>;
+  using L = tfhe::CmuxBlock<LOGN, GL, S, NBUF>;
   if constexpr (L::BYTES > tfhe::kSmemMax) {
     return cudaErrorInvalidValue;
   } else {
@@ -504,50 +508,63 @@ cudaError_t launch_form(const CmuxCall& c) {
     const int blocks = (c.B + S - 1) / S;
     if (c.dec != nullptr) {
       const cudaError_t err =
-          allow_smem_once(allowed[0], cmux_delta_kernel<LOGN, S, NBUF>, L::BYTES);
+          allow_smem_once(allowed[0], cmux_delta_kernel<LOGN, GL, S, NBUF>, L::BYTES);
       if (err != cudaSuccess) return err;
-      cmux_delta_kernel<LOGN, S, NBUF><<<blocks, L::NT, L::BYTES, c.stream>>>(
+      cmux_delta_kernel<LOGN, GL, S, NBUF><<<blocks, L::NT, L::BYTES, c.stream>>>(
           c.dec, c.bk, c.bksh, c.tab, c.out, c.B);
     } else {
       const cudaError_t err =
-          allow_smem_once(allowed[1], blind_rotate_kernel<LOGN, S, NBUF>, L::BYTES);
+          allow_smem_once(allowed[1], blind_rotate_kernel<LOGN, GL, S, NBUF>, L::BYTES);
       if (err != cudaSuccess) return err;
-      blind_rotate_kernel<LOGN, S, NBUF><<<blocks, L::NT, L::BYTES, c.stream>>>(
+      blind_rotate_kernel<LOGN, GL, S, NBUF><<<blocks, L::NT, L::BYTES, c.stream>>>(
           c.acc, c.bara, c.bk, c.bksh, c.tab, c.B, c.n, c.bgbit, c.offset);
     }
     return cudaGetLastError();
   }
 }
 
-template <int LOGN>
+template <int LOGN, int GL>
 cudaError_t launch_logn(const CmuxCall& c, int S, int nbuf) {
-  if (S == 2 && nbuf == 2) return launch_form<LOGN, 2, 2>(c);
-  if (S == 1 && nbuf == 0) return launch_form<LOGN, 1, 0>(c);
+  if constexpr (GL == 2) {
+    if (S == 2 && nbuf == 2) return launch_form<LOGN, GL, 2, 2>(c);
+  } else {
+    if (S == 2 && nbuf == 1) return launch_form<LOGN, GL, 2, 1>(c);
+  }
+  if (S == 1 && nbuf == 0) return launch_form<LOGN, GL, 1, 0>(c);
   return cudaErrorInvalidValue;
 }
 
-// The forms: S samples a block with nbuf key buffers in shared memory
-// (0: the product reads the key from L2): (2, 2) and (1, 0); ops/cmux.py
-// blind_rotate_plan chooses. A form that does not fit the block's shared
-// memory at this N, or does not exist, is an invalid value.
-cudaError_t launch_cmux(const CmuxCall& c, int N, int S, int nbuf) {
-  if (N < 64 || N > 2048 || (N & (N - 1)) || c.B < 1 || c.n < 1) return cudaErrorInvalidValue;
+template <int GL>
+cudaError_t launch_gl(const CmuxCall& c, int N, int S, int nbuf) {
   switch (log2i(N)) {
-    case 6: return launch_logn<6>(c, S, nbuf);
-    case 7: return launch_logn<7>(c, S, nbuf);
-    case 8: return launch_logn<8>(c, S, nbuf);
-    case 9: return launch_logn<9>(c, S, nbuf);
-    case 10: return launch_logn<10>(c, S, nbuf);
-    case 11: return launch_logn<11>(c, S, nbuf);
+    case 6: return launch_logn<6, GL>(c, S, nbuf);
+    case 7: return launch_logn<7, GL>(c, S, nbuf);
+    case 8: return launch_logn<8, GL>(c, S, nbuf);
+    case 9: return launch_logn<9, GL>(c, S, nbuf);
+    case 10: return launch_logn<10, GL>(c, S, nbuf);
+    case 11: return launch_logn<11, GL>(c, S, nbuf);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The forms: S samples a block with nbuf key buffers in shared memory
+// (0: the product reads the key from L2): (2, 2) and (1, 0) at gadget length
+// l = 2, (2, 1) and (1, 0) at l = 3; ops/cmux.py blind_rotate_plan chooses.
+// A form that does not fit the block's shared memory at this N, or does not
+// exist, is an invalid value.
+cudaError_t launch_cmux(const CmuxCall& c, int N, int l, int S, int nbuf) {
+  if (N < 64 || N > 2048 || (N & (N - 1)) || c.B < 1 || c.n < 1) return cudaErrorInvalidValue;
+  if (l == 2) return launch_gl<2>(c, N, S, nbuf);
+  if (l == 3) return launch_gl<3>(c, N, S, nbuf);
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t launch_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                                 const uint32_t* bksh, const uint32_t* tab, int B, int n, int N,
-                                int bgbit, uint32_t offset, int S, int nbuf, cudaStream_t stream) {
+                                int l, int bgbit, uint32_t offset, int S, int nbuf,
+                                cudaStream_t stream) {
   const CmuxCall c{nullptr, nullptr, acc, bara, bk, bksh, tab, B, n, bgbit, offset, stream, nullptr};
-  return launch_cmux(c, N, S, nbuf);
+  return launch_cmux(c, N, l, S, nbuf);
 }
 
 }  // namespace
@@ -555,25 +572,25 @@ cudaError_t launch_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_
 extern "C" {
 
 int tfhe_cmux_delta(const int32_t* dec, const uint32_t* bk, const uint32_t* bksh,
-                    const uint32_t* tab, int32_t* out, int B, int N, int S, int nbuf,
+                    const uint32_t* tab, int32_t* out, int B, int N, int l, int S, int nbuf,
                     cudaStream_t stream) {
   const CmuxCall c{dec, out, nullptr, nullptr, bk, bksh, tab, B, 1, 0, 0u, stream, nullptr};
-  return (int)launch_cmux(c, N, S, nbuf);
+  return (int)launch_cmux(c, N, l, S, nbuf);
 }
 
 int tfhe_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_t* bk, const uint32_t* bksh,
-                      const uint32_t* tab, int B, int n, int N, int bgbit, unsigned int offset,
-                      int S, int nbuf, cudaStream_t stream) {
-  return (int)launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, S, nbuf,
+                      const uint32_t* tab, int B, int n, int N, int l, int bgbit,
+                      unsigned int offset, int S, int nbuf, cudaStream_t stream) {
+  return (int)launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, l, bgbit, offset, S, nbuf,
                                   stream);
 }
 
-// The shared memory, in bytes, of a block of the form (S, nbuf) at this N;
-// an error if the form does not exist or does not fit.
-int tfhe_cmux_smem_bytes(int N, int S, int nbuf, int* bytes) {
+// The shared memory, in bytes, of a block of the form (S, nbuf) at this N and
+// gadget length l; an error if the form does not exist or does not fit.
+int tfhe_cmux_smem_bytes(int N, int l, int S, int nbuf, int* bytes) {
   const CmuxCall c{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 0, 0u,
                    nullptr, bytes};
-  return (int)launch_cmux(c, N, S, nbuf);
+  return (int)launch_cmux(c, N, l, S, nbuf);
 }
 
 // Sample extract and key switch of acc int32[B][2][N] into r int32[B][C] and
@@ -606,11 +623,12 @@ int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t
 
 int tfhe_blind_rotate_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                          const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
-                         int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N, int bgbit,
-                         unsigned int offset, int S, int nbuf, int C, int t, int basebit,
-                         unsigned int prec_offset, int mma, int split, cudaStream_t stream) {
+                         int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N, int l,
+                         int bgbit, unsigned int offset, int S, int nbuf, int C, int t,
+                         int basebit, unsigned int prec_offset, int mma, int split,
+                         cudaStream_t stream) {
   const cudaError_t err =
-      launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, bgbit, offset, S, nbuf, stream);
+      launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, l, bgbit, offset, S, nbuf, stream);
   if (err != cudaSuccess) return (int)err;
   return tfhe_keyswitch(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset, mma, split,
                         stream);

@@ -6,7 +6,8 @@
 // Replaces tfhe_tpu/ops/cmux_pallas.py:_ntt_extern_product (:246) and the
 // helpers it calls: _fwd_rows (:79), _inv_rows (:110), _crt (:235) and
 // _shoup/_umulhi (:42-56). For each of the block's S samples, with the signed
-// gadget digits of the (k+1)*l = 4 rows as residues, it computes per CRT prime
+// gadget digits of the (k+1)*l rows as residues (l = 2 or 3, a template
+// parameter; row r = c*l + d is level d of polynomial c), it computes per CRT prime
 //   dhat_r = NTT(digits_r)
 //   prod_c = sum_r dhat_r * bk[r, c]          (Shoup products, c = 0, 1)
 //   res_c  = NTT^-1(prod_c)
@@ -37,21 +38,25 @@
 //   (6.9 -> 6.6 ms at B = 256 when this went in);
 // - twiddles of both primes (value and Shoup twin interleaved) and the 16
 //   constants sit in shared memory from before the first step;
-// - NBUF > 0: the key slice of one (step, prime), 2 x 32 KB at N = 1024, value
-//   and Shoup twin, arrives by two bulk asynchronous copies that one thread
-//   starts (cp.async.bulk, completing on an mbarrier with a byte count) into
-//   one of NBUF buffers, as soon as the product that read the buffer last is
-//   over: the S samples share that one read. The slice keeps the
-//   [N][8] layout of bk_rows. A thread of the product reads the 16-byte chunk
-//   of two digit rows and both output polynomials at each of its 4
-//   coefficients and uses all of it, then trades half of its sums with the
-//   neighbouring lane that took the other two rows (6.6 -> 6.1 ms against one
-//   polynomial a thread, which read every chunk twice and chose its half).
-//   Its lane is (coefficient group, row pair, sample) with the sample
+// - NBUF > 0: the key slice of one (step, prime), 2 x 32 KB at N = 1024 and
+//   l = 2 (2 x 48 KB at l = 3), value and Shoup twin, arrives by two bulk
+//   asynchronous copies that one thread starts (cp.async.bulk, completing
+//   on an mbarrier with a byte count) into one of NBUF buffers, as soon as
+//   the product that read the buffer last is over: the S samples share that
+//   one read. The slice keeps the [N][2*(k+1)*l] layout of bk_rows. A thread
+//   of the product reads the chunk of the l digit rows of one input
+//   polynomial and both output polynomials at each of its 4 coefficients
+//   (16 bytes at l = 2, 24 at l = 3) and uses all of it, then trades half of
+//   its sums with the neighbouring lane that took the other polynomial's rows
+//   (6.6 -> 6.1 ms against one output polynomial a thread, which read every
+//   chunk twice and chose its half). Its lane is (coefficient group, input polynomial, sample) with the sample
 //   fastest, so the samples' lanes read one address (a broadcast);
 // - NBUF == 0: the product reads the key with 16-byte __ldg at the moment of
 //   use; the blocks in flight keep the slice in L2. Less shared memory: two
 //   blocks of one sample share an SM at N = 1024.
+// At l = 3 a block still has N/2 threads a sample: the six digit rows of the
+// forward passes are four row groups of N/8 threads, the first two of which
+// also take rows 4 and 5 (the rows of a group meet at its named barrier).
 // Tried and dropped, each slower on the card at PARAMS_110: four samples a
 // block with one key buffer, two without buffers, an XOR swizzle of the rows
 // that frees every pass of bank conflicts (one more instruction an access and
@@ -79,19 +84,23 @@ __device__ __forceinline__ int row_pad(int e) { return e + ((e >> 5) << 2); }
 __host__ __device__ constexpr int row_stride(int N) { return N + (N >> 3) + 2; }
 
 // Threads and shared-memory layout (in 32-bit words) of a block that holds S
-// samples of N = 2^LOGN coefficients, with NBUF key buffers. A thread's work
-// in a phase is 8 coefficients of one of a sample's 4 digit rows (forward),
-// or 4 coefficients of one of its 2 output polynomials (product, inverse,
+// samples of N = 2^LOGN coefficients at gadget length GL, with NBUF key
+// buffers. A thread's work in a phase is 8 coefficients of one of a sample's
+// 2*GL digit rows (forward; at GL = 3 two rows for the threads of rows 0 and
+// 1), or 4 coefficients of one of its 2 output polynomials (product, inverse,
 // CRT): N/2 threads a sample either way.
-template <int LOGN, int S, int NBUF>
+template <int LOGN, int GL, int S, int NBUF>
 struct CmuxBlock {
   static constexpr int N = 1 << LOGN;
+  static constexpr int KPL = kOut * GL;          // (k+1)*l digit rows
+  static constexpr int RPT = (KPL + 3) / 4;      // forward rows a thread: four row groups a sample
   static constexpr int kNbuf = NBUF;
   static constexpr int RS = row_stride(N);
-  static constexpr int SS = kKpl * RS + 1;       // a sample's 4 rows; + 1 shifts the next one's banks
+  static constexpr int SS = KPL * RS + 1;        // a sample's rows; + 1 shifts the next one's banks
   static constexpr int NT = S * (N >> 1);        // threads
-  static constexpr int SLICE = 8 * N;            // one (step, prime) of the key, value or Shoup twin
-  static constexpr int KEY = 0;                  // [NBUF][value, twin][N][8]
+  static constexpr int COLS = KPL * kOut;        // key words a coefficient: column r*2 + c
+  static constexpr int SLICE = COLS * N;         // one (step, prime) of the key, value or Shoup twin
+  static constexpr int KEY = 0;                  // [NBUF][value, twin][N][COLS]
   static constexpr int TW = KEY + NBUF * 2 * SLICE;   // uint2 [prime][forward, inverse][N]
   static constexpr int BARS = TW + 8 * N;        // one 64-bit barrier a key buffer (room for 2)
   static constexpr int CST = BARS + 4;           // the 16 constants
@@ -179,16 +188,16 @@ __device__ __forceinline__ uint32_t crt(uint32_t r1, uint32_t r2, const uint32_t
 // s; fills v[j] with the signed digit at coefficient q + j*N/8 as a residue
 // mod p, in [0, 4p). It may read shared memory written before the last block
 // barrier.
-// bk/bksh: the whole key uint32[steps][kPrimes][N][8], column r*2 + c.
+// bk/bksh: the whole key uint32[steps][kPrimes][N][4*GL], column r*2 + c.
 // delta[j]: thread t holds polynomial (t / (N/4)) % 2 of sample t / (N/2),
 // coefficient t % (N/4) + j*N/4.
 // The caller puts a block barrier between its use of delta and the next call.
-template <int LOGN, int S, int NBUF, class Digits>
+template <int LOGN, int GL, int S, int NBUF, class Digits>
 __device__ __forceinline__ void extern_product(const Digits& digits, uint32_t* smem,
                                                const uint32_t* __restrict__ bk,
                                                const uint32_t* __restrict__ bksh, int step,
                                                int steps, uint32_t (&delta)[4]) {
-  using L = CmuxBlock<LOGN, S, NBUF>;
+  using L = CmuxBlock<LOGN, GL, S, NBUF>;
   constexpr int N = L::N, RS = L::RS, NT = L::NT;
   constexpr int RING = NBUF > 0 ? NBUF : 1;
   const int t = threadIdx.x;
@@ -204,26 +213,32 @@ __device__ __forceinline__ void extern_product(const Digits& digits, uint32_t* s
     P.p = cst[5 * pi], P.ninv = cst[5 * pi + 1], P.ninv_sh = cst[5 * pi + 2];
     P.ip1 = cst[5 * pi + 3], P.ip1_sh = cst[5 * pi + 4];
 
-    // forward passes: three stages on 8 values, the first straight from the digits
+    // forward passes: three stages on 8 values, the first straight from the
+    // digits; row group `row` of a sample does rows row, row + 4, ... < KPL
     {
-      const int q = t % L::EIGHTH, row = (t / L::EIGHTH) % kKpl, s = t / L::HALF;
-      uint32_t* x = rows + s * L::SS + row * RS;
+      const int q = t % L::EIGHTH, row = (t / L::EIGHTH) % 4, s = t / L::HALF;
+      uint32_t* x0 = rows + s * L::SS + row * RS;
 #pragma unroll
       for (int s0 = 0; s0 < LOGN - L::TAIL; s0 += 3) {
         const int lu = LOGN - s0 - 3;
         const int hi = q >> lu;
         const int xb = row_pad((hi << (lu + 3)) + (q & ((1 << lu) - 1)));
-        uint32_t v[8];
-        if (s0 == 0) {
-          digits(s, row, q, P.p, v);
-        } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = x[xb + row_pad(j << lu)];
+        for (int rr = 0; rr < L::RPT; ++rr) {
+          if (rr > 0 && row + 4 * rr >= L::KPL) break;
+          uint32_t* x = x0 + 4 * rr * RS;
+          uint32_t v[8];
+          if (s0 == 0) {
+            digits(s, row + 4 * rr, q, P.p, v);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = x[xb + row_pad(j << lu)];
+          }
+          fwd_pass(v, s0, hi, twf, P.p);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) x[xb + row_pad(j << lu)] = v[j];
         }
-        fwd_pass(v, s0, hi, twf, P.p);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x[xb + row_pad(j << lu)] = v[j];
-        // a pass hands its row to the row's own threads; the product reads all rows
+        // a pass hands its rows to the group's own threads; the product reads all rows
         if (s0 + 3 < LOGN - L::TAIL) {
           group_sync<L::EIGHTH, NT / L::EIGHTH>(1, t / L::EIGHTH);
         } else {
@@ -232,13 +247,13 @@ __device__ __forceinline__ void extern_product(const Digits& digits, uint32_t* s
       }
     }
 
-    // the forward stages left over on two of the sample's four rows, their
-    // products against the key columns of both output polynomials at 4
-    // neighbouring coefficients, the sum with the other two rows' products
-    // (the neighbouring thread's, by shuffle) for one polynomial, and inverse
-    // pass 1 (stages 0-1). The result goes over row `half` of the sample,
-    // which only this thread and that neighbour (a lane of the same warp)
-    // still read.
+    // the forward stages left over on the GL rows of input polynomial `half`,
+    // their products against the key columns of both output polynomials at 4
+    // neighbouring coefficients, the sum with the other polynomial's products
+    // (the neighbouring thread's, by shuffle) for one output polynomial, and
+    // inverse pass 1 (stages 0-1). The result goes over row `half` of the
+    // sample, which only this thread and that neighbour (a lane of the same
+    // warp) still read.
     if (NBUF > 0) {
       mbar_wait(shared_u32(smem + L::BARS + 2 * (use % RING)), (uint32_t)(use / RING) & 1u);
     }
@@ -246,31 +261,59 @@ __device__ __forceinline__ void extern_product(const Digits& digits, uint32_t* s
       const int s = t % S, half = (t / S) % 2, iq = t / (S * 2);
       uint32_t* xs = rows + s * L::SS + row_pad(4 * iq);
       const uint32_t p2 = 2u * P.p;
-      uint32_t x[2][4];                             // rows 2*half, 2*half + 1
+      uint32_t x[GL][4];                            // rows GL*half .. GL*half + GL-1
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
+      for (int rr = 0; rr < GL; ++rr) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) x[rr][j] = xs[(2 * half + rr) * RS + j];
+        for (int j = 0; j < 4; ++j) x[rr][j] = xs[(GL * half + rr) * RS + j];
         fwd_tail(x[rr], L::TAIL, iq, N, twf, P.p);
       }
       uint32_t z[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // one 16-byte chunk: columns (2*half, c = 0, 1), (2*half + 1, c = 0, 1)
-        const int at = (4 * iq + j) * 8 + 4 * half;
-        uint4 w, sw;
-        if (NBUF > 0) {
-          const uint32_t* kb = smem + L::KEY + (use % RING) * 2 * L::SLICE;
-          w = *reinterpret_cast<const uint4*>(kb + at);
-          sw = *reinterpret_cast<const uint4*>(kb + L::SLICE + at);
-        } else {
-          w = __ldg(reinterpret_cast<const uint4*>(bk + (size_t)use * L::SLICE + at));
-          sw = __ldg(reinterpret_cast<const uint4*>(bksh + (size_t)use * L::SLICE + at));
+        // one chunk: columns (GL*half + rr, c = 0, 1) for rr < GL: 2*GL words
+        // from word 2*GL*half of the coefficient's COLS
+        const int at = (4 * iq + j) * L::COLS + 2 * GL * half;
+        uint32_t w[2 * GL], sw[2 * GL];
+        if (GL == 2) {                              // 16 bytes
+          uint4 a, b;
+          if (NBUF > 0) {
+            const uint32_t* kb = smem + L::KEY + (use % RING) * 2 * L::SLICE;
+            a = *reinterpret_cast<const uint4*>(kb + at);
+            b = *reinterpret_cast<const uint4*>(kb + L::SLICE + at);
+          } else {
+            a = __ldg(reinterpret_cast<const uint4*>(bk + (size_t)use * L::SLICE + at));
+            b = __ldg(reinterpret_cast<const uint4*>(bksh + (size_t)use * L::SLICE + at));
+          }
+          w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+          sw[0] = b.x, sw[1] = b.y, sw[2] = b.z, sw[3] = b.w;
+        } else {                                    // 8-byte pieces: `at` is even
+#pragma unroll
+          for (int i = 0; i < GL; ++i) {
+            uint2 a, b;
+            if (NBUF > 0) {
+              const uint32_t* kb = smem + L::KEY + (use % RING) * 2 * L::SLICE;
+              a = *reinterpret_cast<const uint2*>(kb + at + 2 * i);
+              b = *reinterpret_cast<const uint2*>(kb + L::SLICE + at + 2 * i);
+            } else {
+              a = __ldg(reinterpret_cast<const uint2*>(bk + (size_t)use * L::SLICE + at + 2 * i));
+              b = __ldg(reinterpret_cast<const uint2*>(bksh + (size_t)use * L::SLICE + at + 2 * i));
+            }
+            w[2 * i] = a.x, w[2 * i + 1] = a.y;
+            sw[2 * i] = b.x, sw[2 * i + 1] = b.y;
+          }
         }
-        const uint32_t c0 = fold(lazy_mul(x[0][j], w.x, sw.x, P.p) +
-                                 lazy_mul(x[1][j], w.z, sw.z, P.p), p2);
-        const uint32_t c1 = fold(lazy_mul(x[0][j], w.y, sw.y, P.p) +
-                                 lazy_mul(x[1][j], w.w, sw.w, P.p), p2);
+        // each product in [0, 2p): a sum of two lies below 4p < 2^32, so a
+        // third row's product is added to the folded sum
+        uint32_t c0 = lazy_mul(x[0][j], w[0], sw[0], P.p) + lazy_mul(x[1][j], w[2], sw[2], P.p);
+        uint32_t c1 = lazy_mul(x[0][j], w[1], sw[1], P.p) + lazy_mul(x[1][j], w[3], sw[3], P.p);
+#pragma unroll
+        for (int rr = 2; rr < GL; ++rr) {
+          c0 = fold(c0, p2) + lazy_mul(x[rr][j], w[2 * rr], sw[2 * rr], P.p);
+          c1 = fold(c1, p2) + lazy_mul(x[rr][j], w[2 * rr + 1], sw[2 * rr + 1], P.p);
+        }
+        c0 = fold(c0, p2);
+        c1 = fold(c1, p2);
         // this thread finishes polynomial `half`, its neighbour the other
         const uint32_t theirs = __shfl_xor_sync(0xffffffffu, half ? c0 : c1, S);
         z[j] = fold((half ? c1 : c0) + theirs, p2);

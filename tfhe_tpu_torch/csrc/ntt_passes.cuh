@@ -21,8 +21,8 @@
 
 namespace tfhe {
 
-constexpr int kKpl = 4;      // (k+1)*l gadget rows (k = 1, l = 2)
-constexpr int kOut = 2;      // k+1 output polynomials
+constexpr int kOut = 2;      // k+1 output polynomials (k = 1); a kernel's gadget length L
+                             // (2 or 3) is a template parameter: kOut * L digit rows
 constexpr int kPrimes = 2;
 constexpr int kTabRows = 5;  // psi, psi_sh, ipsi, ipsi_sh, NTT(halfBg * 1)
 

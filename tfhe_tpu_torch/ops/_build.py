@@ -98,16 +98,16 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.tfhe_cmux_delta.argtypes = [P, P, P, P, P, I, I, I, I, P]
-    lib.tfhe_blind_rotate.argtypes = [P, P, P, P, P, I, I, I, I, U, I, I, P]
+    lib.tfhe_cmux_delta.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.tfhe_blind_rotate.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, I, P]
     lib.tfhe_blind_rotate_ks.argtypes = [P, P, P, P, P, P, P, P, P,
-                                         I, I, I, I, U, I, I, I, I, I, U, I, I, P]
-    lib.tfhe_cmux_smem_bytes.argtypes = [I, I, I, ctypes.POINTER(I)]
+                                         I, I, I, I, I, U, I, I, I, I, I, U, I, I, P]
+    lib.tfhe_cmux_smem_bytes.argtypes = [I, I, I, I, ctypes.POINTER(I)]
     lib.tfhe_keyswitch.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, I, P]
-    lib.tfhe_blind_rotate_small.argtypes = [P, P, P, P, P, I, I, I, I, U, I, P]
+    lib.tfhe_blind_rotate_small.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, P]
     lib.tfhe_blind_rotate_small_ks.argtypes = [P, P, P, P, P, P, P, P, P,
-                                               I, I, I, I, U, I, I, I, I, U, I, I, P]
-    lib.tfhe_blind_rotate_small_in_flight.argtypes = [I, I, ctypes.POINTER(I)]
+                                               I, I, I, I, I, U, I, I, I, I, U, I, I, P]
+    lib.tfhe_blind_rotate_small_in_flight.argtypes = [I, I, I, ctypes.POINTER(I)]
     for fn in (lib.tfhe_blind_rotate_small_in_flight, lib.tfhe_cmux_smem_bytes,
                lib.tfhe_cmux_delta, lib.tfhe_blind_rotate, lib.tfhe_blind_rotate_ks,
                lib.tfhe_keyswitch, lib.tfhe_blind_rotate_small, lib.tfhe_blind_rotate_small_ks):

@@ -5,10 +5,15 @@ kernel's array layouts at its interface, and dispatches on the device of its
 tensors: a CPU tensor takes the plain-torch version (``*_ref``, built from
 ``core.bootstrap``'s pieces); a CUDA tensor launches the hand-written kernel
 of ``csrc/cmux.cu`` or raises. Each launch adds one to ``LAUNCHES[name]`` and
-its batch to ``SAMPLES[name]``; a batch beyond ``max_batch`` is refused. The
-host part of a wrapper on the bootstrap's path (K3, K4 and the key switch) on
-CUDA (checks, plans, the library call) is the span ``tfhe.kernel.<wrapper>``
-(``utils.profiling.span``).
+its batch to ``SAMPLES[name]``, and a blind rotate's batch to
+``FORM_SAMPLES[(name, l, S, nbuf)]``; a batch beyond ``max_batch`` is refused.
+The host part of a wrapper on the bootstrap's path (K3, K4 and the key
+switch) on CUDA (checks, plans, the library call) is the span
+``tfhe.kernel.<wrapper>`` (``utils.profiling.span``), with the batch, the
+gadget length ``l`` and, for a blind rotate, its ``form``.
+
+The kernels take k = 1 and a gadget length l of 2 (PARAMS_110) or 3
+(PARAMS_128), a template parameter of each kernel.
 
 | wrapper                | TPU kernel it replaces                          |
 |------------------------|-------------------------------------------------|
@@ -22,7 +27,8 @@ CUDA (checks, plans, the library call) is the span ``tfhe.kernel.<wrapper>``
 The blind-rotate kernels (K1-K4) hold S whole samples in a block, which walk
 the steps together and share each read of a key slice; ``blind_rotate_plan``
 picks the form (S, key buffers in shared memory) that fits the block at this
-N, and the last block of a batch that S does not divide holds fewer samples.
+N and l, and the last block of a batch that S does not divide holds fewer
+samples.
 The key-switch kernel has two arms behind one entry point
 (``keyswitch_plan``): a gather spread over the card for small batches and a
 one-hot int8 product on the tensor cores for large ones.
@@ -55,6 +61,11 @@ LAUNCHES = {"cmux_delta": 0, "blind_rotate_step": 0, "blind_rotate_fused": 0,
 # the samples those launches held: what each route of a circuit took, whose
 # stages walk through every batch size (core.bootstrap.small_batch)
 SAMPLES = dict.fromkeys(LAUNCHES, 0)
+# the samples of each blind-rotate launch by its form: (name, l, S, nbuf) ->
+# samples, S the samples a block holds, which share each read of a key slice,
+# and nbuf its key buffers in shared memory (K5: S = 1, nbuf 2 in clusters of
+# four, whose CTAs stage the key rows, 0 in clusters of two)
+FORM_SAMPLES: dict = {}
 
 # Largest batch whose key switch takes the gather arm; a larger one takes the
 # tensor-core arm. Measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py:
@@ -73,28 +84,44 @@ KS_MMA_ROWS = 128           # tensor-core arm: samples per block (csrc/cmux.cu k
 KS_MMA_COLS = 128           # tensor-core arm: table bytes per row per block (kMmaCols)
 KS_MMA_STEP = 32            # tensor-core arm: coefficients per product step
 
-# Forms of the kernels that hold S samples in a block (csrc/extern_product.cuh):
-# (S, key buffers in shared memory; 0 buffers: the product reads the key from
-# L2). Measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py's sweep: two
-# samples with a double buffer take 6.15 ms at B = 256 and 49.2 ms at 2048; one
-# sample without buffers, two blocks an SM, 7.5 and 57.3 ms (4.4 ms up to 132
-# samples, which the small-batch kernel does in 1.8-3.8). Two forms went after
-# that sweep: two samples without buffers (7.0 and 56.1 ms) and four samples
-# with one buffer (12.4 and 50.1 ms) (PERF.md).
-CMUX_FORMS = ((2, 2), (1, 0))
+# Forms of the kernels that hold S samples in a block (csrc/extern_product.cuh),
+# by gadget length l: (S, key buffers in shared memory; 0 buffers: the product
+# reads the key from L2). Measured on an H100 (700 W) at PARAMS_110 by
+# chip_smoke.py's sweep: two samples with a double buffer take 6.15 ms at
+# B = 256 and 49.2 ms at 2048; one sample without buffers, two blocks an SM,
+# 7.5 and 57.3 ms (4.4 ms up to 132 samples, which the small-batch kernel does
+# in 1.8-3.8). Two forms went after that sweep: two samples without buffers
+# (7.0 and 56.1 ms) and four samples with one buffer (12.4 and 50.1 ms). At
+# l = 3 (PARAMS_128) a key slice is 1.5 times as large and (2, 2) does not fit
+# a block (301,240 bytes); two samples with one buffer (202,936 bytes) take
+# 10.0 ms at B = 256 and 79.2 ms at 2048, one sample without buffers 15.2 and
+# 117.1 ms (the form at N = 2048). Two buffers of half a slice each (the
+# product's two halves of the coefficients waiting on their own half), tried
+# and dropped: 10.4-10.5 and 82.3 ms (PERF.md, section 6).
+CMUX_FORMS = {2: ((2, 2), (1, 0)), 3: ((2, 1), (1, 0))}
 SMEM_MAX = 232448           # bytes of shared memory a block may use on sm_90
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = SAMPLES[name] = 0
+    FORM_SAMPLES.clear()
 
 
-def count_launch(name: str, B: int) -> None:
-    """One launch of kernel `name` on B samples; called where a wrapper has
-    launched its kernel, and nowhere else."""
+def count_launch(name: str, B: int, form: tuple | None = None) -> None:
+    """One launch of kernel `name` on B samples, a blind rotate of `form`
+    (l, S, nbuf); called where a wrapper has launched its kernel, and nowhere
+    else."""
     LAUNCHES[name] += 1
     SAMPLES[name] += B
+    if form is not None:
+        key = (name,) + tuple(form)
+        FORM_SAMPLES[key] = FORM_SAMPLES.get(key, 0) + B
+
+
+def form_name(S: int, nbuf: int) -> str:
+    """A form (S, nbuf) as the spans name it: "S/nbuf"."""
+    return f"{S}/{nbuf}"
 
 
 # ------------------------------------------------------------------ tables
@@ -175,8 +202,9 @@ def _check_tks(tks_lane: torch.Tensor, params: TfheParams) -> int:
 
 
 def _check_params(params: TfheParams) -> None:
-    if params.k != 1 or params.bk_l != 2 or not 64 <= params.N <= 2048:
-        raise ValueError("the CUDA kernels take k = 1, l = 2 and 64 <= N <= 2048")
+    if params.k != 1 or params.bk_l not in CMUX_FORMS or not 64 <= params.N <= 2048:
+        raise ValueError(f"the CUDA kernels take k = 1, l in {sorted(CMUX_FORMS)} and "
+                         f"64 <= N <= 2048")
 
 
 def max_batch(N: int) -> int:
@@ -210,13 +238,14 @@ def _bk_ntt_view(bk_rows: torch.Tensor, params: TfheParams) -> torch.Tensor:
     return bk_rows.unflatten(-1, (params.kpl, params.k + 1)).movedim(-3, -1)
 
 
-def cmux_smem_bytes(N: int, S: int, nbuf: int) -> int:
-    """Shared memory of a block of the form (S, nbuf) at this N: the layout
-    CmuxBlock of csrc/extern_product.cuh in bytes (key buffers with Shoup
-    twins, twiddles of both primes, barriers, constants, accumulators and, a
-    sample, four padded rows and one word)."""
+def cmux_smem_bytes(N: int, S: int, nbuf: int, l: int) -> int:
+    """Shared memory of a block of the form (S, nbuf) at this N and gadget
+    length l: the layout CmuxBlock of csrc/extern_product.cuh in bytes (key
+    buffers of 4l words a coefficient with Shoup twins, twiddles of both
+    primes, barriers, constants, accumulators and, a sample, 2l padded rows
+    and one word)."""
     row = N + N // 8 + 2
-    words = nbuf * 2 * 8 * N + 8 * N + 4 + 16 + S * 2 * N + S * (4 * row + 1)
+    words = nbuf * 2 * 4 * l * N + 8 * N + 4 + 16 + S * 2 * N + S * (2 * l * row + 1)
     return 4 * words
 
 
@@ -225,27 +254,30 @@ def cmux_threads(N: int, S: int) -> int:
     return S * N // 2
 
 
-def blind_rotate_plan(N: int) -> tuple:
+def blind_rotate_plan(N: int, l: int) -> tuple:
     """(S, nbuf): the form of blind_rotate_kernel and cmux_delta_kernel at
-    this N, the first of CMUX_FORMS that fits a block's shared memory. Block b
-    holds samples b*S .. b*S + S-1; the last block of a batch that S does not
-    divide holds fewer."""
-    for S, nbuf in CMUX_FORMS:
-        if cmux_smem_bytes(N, S, nbuf) <= SMEM_MAX and cmux_threads(N, S) <= 1024:
+    this N and gadget length l, the first of CMUX_FORMS[l] that fits a
+    block's shared memory. Block b holds samples b*S .. b*S + S-1; the last
+    block of a batch that S does not divide holds fewer."""
+    for S, nbuf in CMUX_FORMS[l]:
+        if cmux_smem_bytes(N, S, nbuf, l) <= SMEM_MAX and cmux_threads(N, S) <= 1024:
             return S, nbuf
-    raise ValueError(f"no form of the blind-rotate kernel fits N = {N}")
+    raise ValueError(f"no form of the blind-rotate kernel fits N = {N}, l = {l}")
 
 
 def _launch_rotate(acc: torch.Tensor, bara: torch.Tensor, bk: torch.Tensor,
-                   bksh: torch.Tensor, params: TfheParams, form=None) -> None:
+                   bksh: torch.Tensor, params: TfheParams, form=None) -> tuple:
     """The blind-rotate kernel on a checked, contiguous acc int32[B, k+1, N],
-    in place; `form` (S, nbuf) is blind_rotate_plan's choice unless given."""
+    in place; `form` (S, nbuf) is blind_rotate_plan's choice unless given.
+    Returns the form launched as (l, S, nbuf)."""
     B, n = bara.shape
-    S, nbuf = form or blind_rotate_plan(params.N)
+    S, nbuf = form or blind_rotate_plan(params.N, params.bk_l)
     tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
     check(library().tfhe_blind_rotate(
         acc.data_ptr(), bara.data_ptr(), bk.data_ptr(), bksh.data_ptr(), tab.data_ptr(),
-        B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, _stream(acc)))
+        B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset, S, nbuf,
+        _stream(acc)))
+    return params.bk_l, S, nbuf
 
 
 # ------------------------------------------------------------------ K1
@@ -273,10 +305,10 @@ def cmux_delta(dec_t: torch.Tensor, bk_j: torch.Tensor, bksh_j: torch.Tensor,
     dec = dec_t.permute(2, 0, 1).contiguous()
     out = torch.empty((B, params.k + 1, params.N), dtype=torch.int32, device=dec.device)
     tab = _kernel_tables(params.N, params.halfBg, str(dec.device))
-    S, nbuf = form or blind_rotate_plan(params.N)
+    S, nbuf = form or blind_rotate_plan(params.N, params.bk_l)
     check(library().tfhe_cmux_delta(
         dec.data_ptr(), bk_j.data_ptr(), bksh_j.data_ptr(), tab.data_ptr(), out.data_ptr(),
-        B, params.N, S, nbuf, _stream(dec)))
+        B, params.N, params.bk_l, S, nbuf, _stream(dec)))
     count_launch("cmux_delta", B)
     return out.permute(1, 2, 0)
 
@@ -302,8 +334,8 @@ def blind_rotate_step(acc_t: torch.Tensor, bara_j: torch.Tensor, bk_j: torch.Ten
     acc = _acc_rows(acc_t, params)
     _expect(bara_j, torch.int32, (1, acc.shape[0]), "bara_j")
     _check_bk(bk_j, bksh_j, (), params)
-    _launch_rotate(acc, bara_j.T.contiguous(), bk_j, bksh_j, params, form)
-    count_launch("blind_rotate_step", acc.shape[0])
+    launched = _launch_rotate(acc, bara_j.T.contiguous(), bk_j, bksh_j, params, form)
+    count_launch("blind_rotate_step", acc.shape[0], launched)
     return acc.permute(1, 2, 0)
 
 
@@ -326,14 +358,16 @@ def blind_rotate_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.T
     `form`: as _launch_rotate."""
     if not _on_cuda(acc_t, bara, bk_rows, bksh_rows):
         return blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)
-    with span("tfhe.kernel.blind_rotate_fused", batch=acc_t.shape[-1]):
+    with span("tfhe.kernel.blind_rotate_fused", batch=acc_t.shape[-1]) as sp:
         _check_params(params)
         acc = _acc_rows(acc_t, params)
         n = bara.shape[0]
         _expect(bara, torch.int32, (n, acc.shape[0]), "bara")
         _check_bk(bk_rows, bksh_rows, (n,), params)
-        _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params, form)
-        count_launch("blind_rotate_fused", acc.shape[0])
+        launched = _launch_rotate(acc, bara.T.contiguous(), bk_rows, bksh_rows, params, form)
+        if sp:
+            sp.set(l=params.bk_l, form=form_name(*launched[1:]))
+        count_launch("blind_rotate_fused", acc.shape[0], launched)
         return acc.permute(1, 2, 0)
 
 
@@ -387,7 +421,7 @@ def keyswitch(acc_t: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
     (r int32[B, C], ext int32[2, B]) as blind_rotate_ks_fused."""
     if not _on_cuda(acc_t, tks_lane):
         return keyswitch_ref(acc_t, tks_lane, params)
-    with span("tfhe.kernel.keyswitch", batch=acc_t.shape[-1]):
+    with span("tfhe.kernel.keyswitch", batch=acc_t.shape[-1], l=params.bk_l):
         _check_params(params)
         return _launch_keyswitch(_acc_rows(acc_t, params), tks_lane, params)
 
@@ -427,7 +461,7 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
     digits). On CUDA: the blind-rotate kernel, then the key-switch kernel."""
     if not _on_cuda(acc_t, bara, bk_rows, bksh_rows, tks_lane):
         return blind_rotate_ks_fused_ref(acc_t, bara, bk_rows, bksh_rows, tks_lane, params)
-    with span("tfhe.kernel.blind_rotate_ks_fused", batch=acc_t.shape[-1]):
+    with span("tfhe.kernel.blind_rotate_ks_fused", batch=acc_t.shape[-1]) as sp:
         _check_params(params)
         acc = _acc_rows(acc_t, params)
         B = acc.shape[0]
@@ -437,7 +471,9 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
         C = _check_tks(tks_lane, params)
         bara_b = bara.T.contiguous()
         mma, split = keyswitch_plan(B, params.N, C)
-        S, nbuf = blind_rotate_plan(params.N)
+        S, nbuf = blind_rotate_plan(params.N, params.bk_l)
+        if sp:
+            sp.set(l=params.bk_l, form=form_name(S, nbuf))
         sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
         r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
         ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
@@ -445,8 +481,8 @@ def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torc
         check(library().tfhe_blind_rotate_ks(
             acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
             tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
-            B, n, params.N, params.bk_Bgbit, params.decomp_offset, S, nbuf, C, params.ks_t,
-            params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
-        count_launch("blind_rotate_ks_fused", B)
+            B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset, S, nbuf, C,
+            params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
+        count_launch("blind_rotate_ks_fused", B, (params.bk_l, S, nbuf))
         count_launch("keyswitch", B)
         return r, ext

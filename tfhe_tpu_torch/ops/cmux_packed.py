@@ -9,8 +9,12 @@ tensor launches ``csrc/blind_rotate_small.cu`` (one thread-block cluster of
 four or two CTAs per sample, ``small_cluster``) or raises. Each launch of that
 kernel adds one to ``cmux.LAUNCHES["blind_rotate_fused_packed"]``, each launch
 of the key-switch kernel behind it one to ``cmux.LAUNCHES["keyswitch"]``, and
-its batch to the same names of ``cmux.SAMPLES`` (``cmux.count_launch``); the
-host part of a wrapper on CUDA is the span ``tfhe.kernel.<wrapper>``.
+its batch to the same names of ``cmux.SAMPLES`` (``cmux.count_launch``) and
+to ``cmux.FORM_SAMPLES`` under (name, l, 1, 2) in clusters of four (one
+sample, its key rows staged in a double buffer) or (name, l, 1, 0) in
+clusters of two; the host part of a wrapper on CUDA is the span
+``tfhe.kernel.<wrapper>``, with the batch, the gadget length ``l`` (2 or 3)
+and the ``form`` "c4" or "c2".
 
 | wrapper                      | what it launches                            |
 |------------------------------|---------------------------------------------|
@@ -34,28 +38,32 @@ from ._build import check, library
 from .cmux import (_acc_rows, _check_batch, _check_params, _check_tks, _expect, _kernel_tables,
                    _on_cuda, _stream, count_launch, keyswitch_plan, keyswitch_ref)
 
+# the FORM_SAMPLES form (S, nbuf) of each cluster size
+CLUSTER_FORMS = {4: (1, 2), 2: (1, 0)}
+
 LANE = 128
 N_MAX = 1024    # the kernel's rows, and two steps' key rows, have to fit in shared memory
 
 
 @functools.lru_cache(maxsize=None)
-def samples_in_flight(N: int, cluster: int, device_index: int) -> int:
+def samples_in_flight(N: int, cluster: int, device_index: int, l: int) -> int:
     """How many samples the card works on at once with `cluster` CTAs per
-    sample (``cudaOccupancyMaxActiveClusters``); a larger batch runs in waves."""
+    sample at gadget length l (``cudaOccupancyMaxActiveClusters``); a larger
+    batch runs in waves."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        check(library().tfhe_blind_rotate_small_in_flight(N, cluster, ctypes.byref(out)))
+        check(library().tfhe_blind_rotate_small_in_flight(N, l, cluster, ctypes.byref(out)))
     return out.value
 
 
-def small_cluster(B: int, N: int, device: torch.device) -> int:
+def small_cluster(B: int, N: int, device: torch.device, l: int) -> int:
     """CTAs per sample for a batch of B. A cluster of 4 (one polynomial of one
     prime each, key rows staged in shared memory, one CTA an SM) is the
     fastest per sample and serves the batches the card takes in one wave of
     such clusters (30 samples on an H100 at N = 1024); a cluster of 2 (one
     prime each, two CTAs an SM, 132 samples at once) every larger batch."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return 4 if B <= samples_in_flight(N, 4, index) else 2
+    return 4 if B <= samples_in_flight(N, 4, index, l) else 2
 
 
 def _check_bk_ntt(bk: torch.Tensor, bksh: torch.Tensor, n: int, params: TfheParams) -> None:
@@ -100,7 +108,7 @@ def blind_rotate_fused_packed(acc_p: torch.Tensor, bara: torch.Tensor, bk_ntt: t
     kpl, k+1, N]. Returns the accumulator in the layout of acc_p."""
     if not _on_cuda(acc_p, bara, bk_ntt, bk_ntt_shoup):
         return blind_rotate_fused_packed_ref(acc_p, bara, bk_ntt, bk_ntt_shoup, params)
-    with span("tfhe.kernel.blind_rotate_fused_packed", batch=bara.shape[-1]):
+    with span("tfhe.kernel.blind_rotate_fused_packed", batch=bara.shape[-1]) as sp:
         _check_params(params)
         k1, N = params.k + 1, params.N
         _check_n(params)
@@ -113,21 +121,30 @@ def blind_rotate_fused_packed(acc_p: torch.Tensor, bara: torch.Tensor, bk_ntt: t
         bara_b = _check_bara(bara, B)
         _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
         return _launch_packed(acc_p.clone(memory_format=torch.contiguous_format), bara_b, bk_ntt,
-                              bk_ntt_shoup, params)
+                              bk_ntt_shoup, params, sp=sp)
+
+
+def _spanned_form(sp, params: TfheParams, cluster: int) -> tuple:
+    """Names the form of a K5 launch on its wrapper's span `sp`; returns its
+    FORM_SAMPLES form (l, S, nbuf)."""
+    if sp:
+        sp.set(l=params.bk_l, form=f"c{cluster}")
+    return (params.bk_l,) + CLUSTER_FORMS[cluster]
 
 
 def _launch_packed(acc: torch.Tensor, bara_b: torch.Tensor, bk_ntt: torch.Tensor,
-                   bk_ntt_shoup: torch.Tensor, params: TfheParams, cluster=None) -> torch.Tensor:
+                   bk_ntt_shoup: torch.Tensor, params: TfheParams, cluster=None,
+                   sp=None) -> torch.Tensor:
     """The kernel on a checked, contiguous acc in the packed layout, in place;
     `cluster` (CTAs per sample) is small_cluster's choice unless given."""
     B, n = bara_b.shape
-    cluster = cluster or small_cluster(B, params.N, acc.device)
+    cluster = cluster or small_cluster(B, params.N, acc.device, params.bk_l)
     tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
     check(library().tfhe_blind_rotate_small(
         acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
-        tab.data_ptr(), B, n, params.N, params.bk_Bgbit, params.decomp_offset, cluster,
-        _stream(acc)))
-    count_launch("blind_rotate_fused_packed", B)
+        tab.data_ptr(), B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset,
+        cluster, _stream(acc)))
+    count_launch("blind_rotate_fused_packed", B, _spanned_form(sp, params, cluster))
     return acc
 
 
@@ -151,7 +168,7 @@ def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt
     if not _on_cuda(acc_t, bara, bk_ntt, bk_ntt_shoup, tks_lane):
         return blind_rotate_packed_ks_fused_ref(acc_t, bara, bk_ntt, bk_ntt_shoup, tks_lane,
                                                 params)
-    with span("tfhe.kernel.blind_rotate_packed_ks_fused", batch=acc_t.shape[-1]):
+    with span("tfhe.kernel.blind_rotate_packed_ks_fused", batch=acc_t.shape[-1]) as sp:
         _check_params(params)
         _check_n(params)
         acc = _acc_rows(acc_t, params)
@@ -161,7 +178,7 @@ def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt
         _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
         C = _check_tks(tks_lane, params)
         mma, split = keyswitch_plan(B, params.N, C)
-        cluster = small_cluster(B, params.N, acc.device)
+        cluster = small_cluster(B, params.N, acc.device, params.bk_l)
         sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
         r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
         ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
@@ -169,8 +186,8 @@ def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt
         check(library().tfhe_blind_rotate_small_ks(
             acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
             tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
-            B, n, params.N, params.bk_Bgbit, params.decomp_offset, cluster, C, params.ks_t,
-            params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
-        count_launch("blind_rotate_fused_packed", B)
+            B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset, cluster, C,
+            params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
+        count_launch("blind_rotate_fused_packed", B, _spanned_form(sp, params, cluster))
         count_launch("keyswitch", B)
         return r, ext
