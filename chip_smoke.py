@@ -200,6 +200,9 @@ WIDE_RANDOM = 160      # random rows held against plain at the linalg and linreg
 ROUTE_SLACK = 1.08     # the kernel small_batch() picks may be this much slower than the other
 KS_CHECK = (1, 2, 3, 33, 64, 256)           # key switch against keyswitch_ref, both arms
 KS_SWEEP = (1, 2, 8, 16, 24, 32, 64, 128, 256)   # key switch beside torch._int_mm
+# the paired key switch against keyswitch_ref at PARAMS_110: outputs of a MUX
+# (P = B pairs of 2B accumulators) and of a prefix level (P = ceil(B / 2))
+KS_PAIRS = (2, 16, 30, 45, 60, 256)
 GRAPH_REPS = 5         # [graph]: replays and eager runs of each op, in turns
 REPLAY_A, REPLAY_B = -3021, 4099        # [graph]: the replays' operands, unlike the capture's
 GRAPH_SWEEP = (1, 4, 16, 32, 64, 128)   # [graph]: numbers of a 16-bit add, the capture rule
@@ -318,19 +321,25 @@ def bound(moved_bytes: float, ops_seconds: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def keyswitch_work(acc_t, tks, params, outputs) -> tuple:
+def keyswitch_work(acc_t, tks, params, outputs, pairs: int = 0) -> tuple:
     """(bytes, seconds of operations) a key switch of this accumulator needs:
     the table rows its nonzero digits select, each distinct row read once
     (what this run's data needs), acc[0] read and (r, ext) written once; as
     operations the cheaper of one int32 add per selected byte and the one-hot
-    int8 product."""
+    int8 product. With `pairs` P the digits are those of the summed pairs,
+    and acc[0] of all 2P + R accumulators is read (twice the outputs' words
+    where R = 0)."""
     from tfhe_tpu_torch.core import bootstrap as bs
+    a_read = acc_t[0]
+    if pairs:
+        acc_t = torch.cat([acc_t[..., :pairs] + acc_t[..., pairs:2 * pairs],
+                           acc_t[..., 2 * pairs:]], dim=-1)
     a0 = acc_t[0].T
     onehot = bs.ks_onehot(torch.cat([a0[:, :1], -a0[:, 1:]], dim=1), params)
     row_bytes = tks.shape[-1]
     rows_read = int(onehot.any(dim=0).sum().item())
     selected = int(onehot.sum(dtype=torch.int64).item())
-    moved = rows_read * row_bytes + nbytes(acc_t[0], *outputs)
+    moved = rows_read * row_bytes + nbytes(a_read, *outputs)
     adds = selected * row_bytes / int32_ops_per_s()
     product = 2.0 * onehot.shape[0] * onehot.shape[1] * row_bytes / INT8_OPS_PER_S
     return moved, min(adds, product)
@@ -355,9 +364,11 @@ def packed(acc: torch.Tensor) -> torch.Tensor:
     return acc.transpose(0, 1).reshape(k1 * B, N // 128, 128)
 
 
-def check_k5(params, acc, bara_t, bk, sh, tks, label: str) -> int:
+def check_k5(params, acc, bara_t, bk, sh, tks, label: str, pairs: int = 0) -> int:
     """Both K5 wrappers (the rotate alone, and rotate + key switch) against
-    their plain versions on the card; returns the max |err| (0)."""
+    their plain versions on the card, and with `pairs` the rotate + paired
+    key switch (b_add 1/8, as a MUX) too; returns the max |err| (0)."""
+    from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.ops import cmux_packed as cp
     acc_p, acc_t = packed(acc), acc.permute(1, 2, 0)
     B = acc.shape[0]
@@ -368,8 +379,18 @@ def check_k5(params, acc, bara_t, bk, sh, tks, label: str) -> int:
         f"blind_rotate_packed_ks_fused {label} B={B}",
         cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks, params),
         cp.blind_rotate_packed_ks_fused_ref(acc_t, bara_t, bk, sh, tks, params)))
-    log(f"[kernels] K5 (blind_rotate_fused_packed, alone and with the key switch) {label} "
-        f"B={B}: byte-equal to plain (max |err| {err})")
+    paired = ""
+    if pairs:
+        cluster = cp.small_cluster(B, params.N, acc.device, params.bk_l)
+        err = max(err, expect_equal(
+            f"blind_rotate_packed_ks_fused {label} B={B} pairs={pairs}",
+            cp.blind_rotate_packed_ks_fused(acc_t, bara_t, bk, sh, tks, params, pairs,
+                                            gates._1_8),
+            cp.blind_rotate_packed_ks_fused_ref(acc_t, bara_t, bk, sh, tks, params, pairs,
+                                                gates._1_8)))
+        paired = f", and with the key switch paired ({pairs} pairs, clusters of {cluster})"
+    log(f"[kernels] K5 (blind_rotate_fused_packed, alone and with the key switch{paired}) "
+        f"{label} B={B}: byte-equal to plain (max |err| {err})")
     return err
 
 
@@ -496,6 +517,38 @@ def check_keyswitch() -> int:
         log(f"[kernels] keyswitch {label} B={list(KS_CHECK)}, planned arm and both arms forced, "
             f"random / all-zero / all-nonzero digits: byte-equal to keyswitch_ref "
             f"(max |err| {err})")
+    return max(err, check_keyswitch_pairs(PARAMS_110, tks, rng))
+
+
+def check_keyswitch_pairs(params, tks, rng) -> int:
+    """The paired key switch against keyswitch_ref with the same pairs and
+    b_add 1/8, byte-equal, for B outputs of KS_PAIRS as a MUX (P = B) and a
+    prefix level (P = ceil(B / 2)): the arm the plan takes by B, then each
+    arm forced, on random digits."""
+    from tfhe_tpu_torch import gates
+    from tfhe_tpu_torch.ops import cmux
+    C = tks.shape[-1] // 4
+    err = 0
+    for B in KS_PAIRS:
+        for kind, P in (("MUX", B), ("prefix", -(-B // 2))):
+            acc_t = ks_inputs(params, B + P, rng, "random")
+            want = cmux.keyswitch_ref(acc_t, tks, params, pairs=P, b_add=gates._1_8)
+            acc = cmux._acc_rows(acc_t, params)
+            got = {
+                "planned arm": cmux.keyswitch(acc_t, tks, params, pairs=P, b_add=gates._1_8),
+                "gather arm": cmux._launch_keyswitch(
+                    acc, tks, params, plan=(0, cmux.gather_split(B, params.N)), pairs=P,
+                    b_add=gates._1_8),
+                "tensor-core arm": cmux._launch_keyswitch(
+                    acc, tks, params, plan=(1, cmux.mma_split(B, params.N, C)), pairs=P,
+                    b_add=gates._1_8),
+            }
+            for arm, out in got.items():
+                err = max(err, expect_equal(f"keyswitch paired {kind} B={B} P={P}, {arm}",
+                                            out, want))
+    log(f"[kernels] keyswitch paired PARAMS_110, outputs B={list(KS_PAIRS)} of a MUX (P = B) "
+        f"and a prefix level (P = ceil(B/2)), planned arm and both arms forced: byte-equal to "
+        f"keyswitch_ref with the pairs (max |err| {err})")
     return err
 
 
@@ -505,7 +558,11 @@ def sweep_keyswitch(sk, acc_rot, smi: str) -> dict:
     forced), the plain version, its bound, and the library's way: one
     torch._int_mm on a prebuilt one-hot matrix, and the whole
     core.bootstrap.key_switch route (one-hot construction, product,
-    recombine). Kernel and library in turns: kernel, library, route, kernel."""
+    recombine). Kernel and library in turns: kernel, library, route, kernel.
+    Then the paired key switch of a MUX (B outputs of 2B accumulators: the
+    first B and the first B rotated by one sample), checked and timed beside
+    its bound."""
+    from tfhe_tpu_torch import gates
     from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.ops import cmux
     params, cloud = sk.params, sk.cloud
@@ -541,6 +598,18 @@ def sweep_keyswitch(sk, acc_rot, smi: str) -> dict:
             f"(gather arm {gather:.4f}, tensor-core arm {mma:.4f}), torch._int_mm {lib:.4f} ms, "
             f"key_switch route {route:.4f} ms, plain {plain:.4f} ms, bound {r['bound_ms']:.5f} ms "
             f"by {r['bound_by']} ({smi})")
+        pair_t = torch.cat([acc_t, acc_rot.roll(1, dims=-1)[:, :, :B]], dim=-1).contiguous()
+        pwant = cmux.keyswitch_ref(pair_t, tks, params, pairs=B, b_add=gates._1_8)
+        perr = expect_equal(f"keyswitch paired PARAMS_110 (reference keys) B={B}",
+                            cmux.keyswitch(pair_t, tks, params, pairs=B, b_add=gates._1_8),
+                            pwant)
+        pms = cuda_ms(lambda: cmux.keyswitch(pair_t, tks, params, pairs=B, b_add=gates._1_8),
+                      reps)
+        r["paired"] = {"max_abs_err": perr, "ms": pms,
+                       **bound(*keyswitch_work(pair_t, tks, params, pwant, pairs=B))}
+        log(f"[kernels] keyswitch paired PARAMS_110 B={B} outputs of {2 * B} accumulators: "
+            f"byte-equal (max |err| {perr}), kernel {pms:.4f} ms, bound "
+            f"{r['paired']['bound_ms']:.5f} ms by {r['paired']['bound_by']} ({smi})")
     return rows
 
 
@@ -614,8 +683,20 @@ def phase_kernels(sk, x, smi: str) -> dict:
         log(f"[kernels] {name} PARAMS_110 B={B}: "
             + ("not measured" if ms is None else f"{ms:.4f} ms") +
             f" on the device (torch.profiler, the kernel alone) ({smi})")
-    out["keyswitch"] = {**ks_rows[BATCH], "shape": f"PARAMS_110 B={BATCH}",
-                        "by_batch": {str(b): r for b, r in ks_rows.items()}}
+    half = BATCH // 2
+    err = expect_equal(
+        f"blind_rotate_ks 110 B={BATCH} pairs={half}",
+        cmux.blind_rotate_ks_fused(acc_t, bara_t, bk, sh, tks, params, half, gates._1_8),
+        cmux.blind_rotate_ks_fused_ref(acc_t, bara_t, bk, sh, tks, params, half, gates._1_8))
+    log(f"[kernels] blind_rotate_ks PARAMS_110 B={BATCH} with the key switch paired ({half} "
+        f"pairs, a MUX of {half}): byte-equal to plain (max |err| {err})")
+    out["blind_rotate_ks"]["paired_max_abs_err"] = err
+    out["keyswitch"] = {**{k: v for k, v in ks_rows[BATCH].items() if k != "paired"},
+                        "shape": f"PARAMS_110 B={BATCH}",
+                        "by_batch": {str(b): r for b, r in ks_rows.items()},
+                        "paired": {**ks_rows[BATCH]["paired"],
+                                   "shape": f"PARAMS_110 B={BATCH} outputs of a MUX "
+                                            f"({BATCH} pairs, {2 * BATCH} accumulators)"}}
     check_large_batch(sk, x)
     check_wide_batch(sk)
     check_ragged(sk, x)
@@ -812,9 +893,12 @@ def phase_k5(sk, x, smi: str) -> dict:
              for name, cluster in forms.items()}
     log(f"[kernels] K5 samples in flight at PARAMS_110, by CTAs a sample: {waves}")
     err = 0
-    for B in (1, 64, waves["4 CTAs"] + 1, waves["2 CTAs"] + 1, BATCH):
+    # paired (a MUX of B/2) in clusters of four (B = a wave of them) and of two (64)
+    for B in (1, waves["4 CTAs"], 64, waves["4 CTAs"] + 1, waves["2 CTAs"] + 1, BATCH):
         acc, bara = bs._prepare_acc(x[:B], gates.MU, cloud)
-        err = max(err, check_k5(params, acc, bara.T, bk, sh, tks, "PARAMS_110 (reference keys)"))
+        pairs = B // 2 if B in (waves["4 CTAs"], 64) else 0
+        err = max(err, check_k5(params, acc, bara.T, bk, sh, tks, "PARAMS_110 (reference keys)",
+                                pairs))
     acc, bara = bs._prepare_acc(x[:1], gates.MU, cloud)
     acc_p, acc_t, bara_t = packed(acc), acc.permute(1, 2, 0), bara.T
     ms = cuda_ms(lambda: cp.blind_rotate_fused_packed(acc_p, bara_t, bk, sh, params), 5)
@@ -1596,15 +1680,18 @@ def add_counts(total: dict, part: dict) -> None:
 
 
 def on_card(fn) -> dict:
-    """fn() on the card between synchronises, with the counts set to 0 just
-    before and read just after: its result, wall ms, counts, and the peak of
-    the device memory allocated during the call beside what was held before."""
+    """fn() on the card between synchronises, with the counts (the launches
+    and ``PAIR_KS``) set to 0 just before and read just after: its result,
+    wall ms, counts, and the peak of the device memory allocated during the
+    call beside what was held before."""
+    from tfhe_tpu_torch.core import bootstrap as bs
     from tfhe_tpu_torch.ops import cmux
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     PHASE_PEAK[0] = max(PHASE_PEAK[0], torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     cmux.reset_launches()
+    bs.reset_pair_ks()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -1747,6 +1834,7 @@ def phase_linreg(sk, and_rate: float, smi: str) -> dict:
     import tfhe_tpu_torch as tt
     from tfhe_tpu_torch import arith
     from tfhe_tpu_torch.apps import linreg
+    from tfhe_tpu_torch.core import bootstrap as bs
     R, A, cloud = LINREG_ROWS, LINREG_ATTRS, sk.cloud
     rng = np.random.RandomState(7)
     ys = np.broadcast_to(rng.randint(0, 1 << 6, size=R), (A, R))
@@ -1761,17 +1849,20 @@ def phase_linreg(sk, and_rate: float, smi: str) -> dict:
         cy = arith.encrypt_int(sk, ys, NBITS, gen, "cuda")
         fit = linreg.linear_regression_binary if binary else linreg.linear_regression
         run = on_card(lambda: fit(cx, cy, cloud))
+        paired = dict(bs.PAIR_KS)                # on_card cleared it with the launches
         b1, b0 = (arith.decrypt_int(sk, v) for v in run["out"])
         got = [(int(p), int(q)) for p, q in zip(b1, b0)]
         want = twin_linreg(xs, ys, NBITS, binary)
         if got != want:
             raise AssertionError(f"linreg {variant} {R}x{A}: decrypts to {got}, the plaintext "
                                  f"twin gives {want}")
-        # the binary fit's MUX of 2 x 32,000 is the large bootstrap without key
-        # switch; the numerical fit's MUXes (the divisions') are small
+        # the binary fit's MUX of 2 x 32,000 is one paired bootstrap through K4,
+        # its key switch summing the pairs; the numerical fit's MUXes (the
+        # divisions') are small: every MUX takes the paired key-switch kernels
         expect_routes(f"linreg {variant}", run,
-                      ("blind_rotate_ks_fused", "blind_rotate_fused_packed", "keyswitch")
-                      + (("blind_rotate_fused",) if binary else ()))
+                      ("blind_rotate_ks_fused", "blind_rotate_fused_packed", "keyswitch"))
+        if paired["split"] or not paired["kernel"]:
+            raise AssertionError(f"linreg {variant}: paired key switches by route {paired}")
         add_counts(total, run)
         log(f"[linreg] {variant} fit, {R} rows x {A} attributes, {NBITS}-bit, PARAMS_110: all "
             f"{A} (b1, b0) equal the plaintext twin {want[:3]}...; {describe(run, and_rate, smi)}")

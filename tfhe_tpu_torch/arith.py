@@ -38,6 +38,7 @@ import torch
 
 from . import gates
 from .config import circuit_jit_enabled, policy_fingerprint
+from .core import bootstrap as bs
 from .core.keys import CloudKey
 from .core.lwe import LweCiphertext, keeping, lwe_concat, lwe_stack, lwe_take
 from .ops import cmux, cmux_packed
@@ -172,8 +173,8 @@ def _clone(out):
 class _Entry:
     """A key's state: called `calls` times eagerly (graph None; its identity
     arguments held weakly), or captured (the graph, its static inputs and
-    outputs, and the launches, samples by form and adder decisions each
-    replay makes). `held`
+    outputs, and the launches, samples by form, adder decisions and paired
+    key switches (``bs.PAIR_KS``) each replay makes). `held`
     maps the cache keys of the plans its eager calls and its capture read to
     the tensors (``core/lwe.keeping``)."""
     refs: tuple
@@ -186,6 +187,7 @@ class _Entry:
     samples: dict = None
     arms: dict = None
     forms: dict = None
+    pairs: dict = None
 
 
 class CircuitGraphs:
@@ -279,7 +281,7 @@ class CircuitGraphs:
         static = [s if s is not None else a for s, a in zip(inputs, args)]
         graph = self.graph(device)
         launches, samples, arms = dict(cmux.LAUNCHES), dict(cmux.SAMPLES), dict(ADDER_ARMS)
-        forms = dict(cmux.FORM_SAMPLES)
+        forms, pairs = dict(cmux.FORM_SAMPLES), dict(bs.PAIR_KS)
         try:
             with span("tfhe.circuit.capture"), keeping(warm.held):
                 out = graph.capture(lambda: f(*static))
@@ -293,14 +295,16 @@ class CircuitGraphs:
             d_arms = {k: ADDER_ARMS[k] - v for k, v in arms.items()}
             d_forms = {k: v - forms.get(k, 0) for k, v in cmux.FORM_SAMPLES.items()
                        if v != forms.get(k, 0)}
+            d_pairs = {k: bs.PAIR_KS[k] - v for k, v in pairs.items()}
             cmux.LAUNCHES.update(launches)
             cmux.SAMPLES.update(samples)
             ADDER_ARMS.update(arms)
+            bs.PAIR_KS.update(pairs)
             cmux.FORM_SAMPLES.clear()
             cmux.FORM_SAMPLES.update(forms)
         _check_outputs(out)
         entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, d_launches, d_samples,
-                       d_arms, d_forms)
+                       d_arms, d_forms, d_pairs)
         self._remember(key, entry)
         return entry
 
@@ -319,6 +323,8 @@ class CircuitGraphs:
             ADDER_ARMS[k] += v
         for k, v in entry.forms.items():
             cmux.FORM_SAMPLES[k] = cmux.FORM_SAMPLES.get(k, 0) + v
+        for k, v in entry.pairs.items():
+            bs.PAIR_KS[k] += v
         return _clone(entry.out)
 
 

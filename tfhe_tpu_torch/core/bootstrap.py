@@ -12,6 +12,12 @@ and take these plain pieces for CPU tensors. Every route gives the same bits:
   and key switch;
 - split (default on the CPU): a blind-rotate wrapper, then
   ``sample_extract`` and the one-hot int8 matmul ``key_switch``;
+- paired (``bootstrap_paired``: a gate that sums two bootstraps before one
+  key switch, ``gates.MUX`` and ``gates.prefix_combine``): on the fused
+  route the key-switch kernels sum the pairs themselves, a batch above
+  ``batch_cap`` in chunks of whole pairs; elsewhere
+  ``bootstrap_pairs_split`` sums the extracted samples before
+  ``key_switch``. ``PAIR_KS`` counts the calls by route;
 - a flat batch above ``batch_cap`` is bootstrapped in equal chunks and a
   remainder, whose outputs are concatenated (``tfhe_tpu``'s
   ``_chunked_over_batch``): the samples are independent and the math exact,
@@ -76,10 +82,10 @@ WAVES = {
     # clusters of four (30 samples at N = 1024) takes 1.830 ms at B = 1, 1.845
     # at 30, its 500 dependent CMux steps and not its samples set the time;
     # add16 replayed, 16 stages of 2 samples, takes 30.6-31.6 ms, ~1.94 ms a
-    # stage. Left out: a stage whose key switch runs apart from its blind
-    # rotate (a prefix level, a MUX: ``key_switch``, torch._int_mm on the
-    # card) pays ~0.75 ms more, so the estimate favours the prefix arm where
-    # the two are close (PERF.md, section 6).
+    # stage. A prefix level or a MUX sums its pairs inside the key-switch
+    # kernels behind its blind rotate (``bootstrap_paired``), so it costs
+    # what any stage of its batch does: it pays no key switch of its own
+    # through torch._int_mm (~0.75 ms a stage), which the estimate leaves out.
     2: Waves(small_batch_max=858, k5_wave=132, k5_wave_ms=3.6, k5_tail_ms=2.1,
              k3_wave=264, k3_wave_ms=6.2, k5_c4_ms=1.84, stage_glue_ms=0.1),
     # PARAMS_128 (l = 3, n = 630, N = 1024), from a sweep of B = 1 to 4096 on
@@ -319,11 +325,12 @@ def _small(B: int, params: TfheParams) -> bool:
     return params.N <= cmux_packed.N_MAX and small_batch(B, params)
 
 
-def _route(B: int, params: TfheParams, fused: bool) -> str:
+def _route(B: int, params: TfheParams, fused: bool, pairs: int = 0) -> str:
     """The blind rotate a flat batch of B takes, as a bootstrap's span names
-    it: K4 or K5 with the key switch in the same wrapper, K3 or K5 without."""
+    it: K4 or K5 with the key switch in the same wrapper (``_pairs``: the key
+    switch paired), K3 or K5 without."""
     if fused:
-        return "k5" if _small(B, params) else "k4"
+        return ("k5" if _small(B, params) else "k4") + ("_pairs" if pairs else "")
     return "k5_woks" if _small(B, params) else "k3"
 
 
@@ -376,20 +383,23 @@ def batch_cap(device: torch.device, cloud) -> int:
     return _card_cap(index, key_bytes, cloud.params.N)
 
 
-def _chunked(impl, x: LweCiphertext, mu, cloud, woks: bool = False):
+def _chunked(impl, x: LweCiphertext, mu, cloud, woks: bool = False, pairs: int = 0):
     """impl(x, mu, cloud) over equal chunks of batch_cap() samples and a
     remainder, outputs concatenated (an LweCiphertext, or a tuple of tensors).
     A per-sample mu is split with the samples. The span ``tfhe.bootstrap``
     names the route and form of the first chunk (`woks`: impl stops before
-    the key switch), the gadget length, the batch and the chunks."""
+    the key switch; `pairs`: impl's key switch is paired, on a batch in one
+    chunk), the gadget length, the batch and the chunks."""
     B = x.b.shape[0]
     cap = batch_cap(x.device, cloud)
     with span("tfhe.bootstrap") as sp:
         if sp:
             fused = not woks and _fused(x, cloud)
-            route = _route(min(B, cap), cloud.params, fused)
+            route = _route(min(B, cap), cloud.params, fused, pairs)
             sp.set(route=route, form=_form(route, min(B, cap), cloud.params, x.device),
                    l=cloud.params.bk_l, batch=B, parts=-(-B // cap))
+            if pairs:
+                sp.set(pairs=pairs)
         if B <= cap:
             return impl(x, mu, cloud)
         per_sample = isinstance(mu, torch.Tensor) and mu.dim() > 0 and mu.shape[0] == B
@@ -431,26 +441,50 @@ def _bootstrap_woks_whole(x: LweCiphertext, mu, cloud):
 
 
 @spanned("tfhe.bootstrap.finish")
-def finish_fused_ks(r: torch.Tensor, ext: torch.Tensor, params: TfheParams) -> LweCiphertext:
+def finish_fused_ks(r: torch.Tensor, ext: torch.Tensor, params: TfheParams,
+                    pairs: int = 0) -> LweCiphertext:
     """The sample from the fused kernel's outputs: r int32[B, C] (recombined
-    key-switch sums) and ext int32[2, B] (b_ext, count of nonzero digits)."""
+    key-switch sums) and ext int32[2, B] (b_ext, count of nonzero digits).
+    The first `pairs` outputs sum two bootstraps: their cv is the two
+    variances and the key switch's, summed as bootstrap_pairs_split does."""
     n = params.n
-    cv = ext[1].to(torch.float32) * params.ks_stdev ** 2 + _bootstrap_variance(params)
+    if pairs:
+        cv = torch.full((r.shape[0],), _bootstrap_variance(params), dtype=torch.float32,
+                        device=r.device)
+        cv[:pairs] *= 2
+        cv = cv + ext[1].to(torch.float32) * params.ks_stdev ** 2
+    else:
+        cv = ext[1].to(torch.float32) * params.ks_stdev ** 2 + _bootstrap_variance(params)
     return LweCiphertext(-r[:, :n], ext[0] - r[:, n], cv)
 
 
-def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud) -> LweCiphertext:
-    """bootstrap() through a blind rotate, extract and key switch in one wrapper."""
+def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud, pairs: int = 0,
+                        b_add: int = 0) -> LweCiphertext:
+    """bootstrap() through a blind rotate, extract and key switch in one
+    wrapper, the key switch paired where `pairs` > 0."""
     params: TfheParams = cloud.params
     acc, bara = _prepare_acc(x, mu, cloud)
     if _small(x.b.shape[0], params):
         r, ext = cmux_packed.blind_rotate_packed_ks_fused(
             acc.permute(1, 2, 0), bara.T, cloud.bk_ntt, cloud.bk_ntt_shoup,
-            cloud.ks_table_perm, params)
+            cloud.ks_table_perm, params, pairs, b_add)
     else:
         r, ext = cmux.blind_rotate_ks_fused(acc.permute(1, 2, 0), bara.T, cloud.bk_rows,
-                                            cloud.bk_rows_shoup, cloud.ks_table_perm, params)
-    return finish_fused_ks(r, ext, params)
+                                            cloud.bk_rows_shoup, cloud.ks_table_perm, params,
+                                            pairs, b_add)
+    return finish_fused_ks(r, ext, params, pairs)
+
+
+# The paired bootstraps (``bootstrap_paired``) by route: "kernel", the
+# key-switch kernels sum the pairs (the fused route), and "split", the sum of
+# extracted samples goes through ``key_switch``. Counted where each route
+# runs; a captured circuit adds its capture's counts on each replay
+# (``arith.CircuitGraphs``), and ``reset_pair_ks`` clears them.
+PAIR_KS = {"kernel": 0, "split": 0}
+
+
+def reset_pair_ks() -> None:
+    PAIR_KS.update(dict.fromkeys(PAIR_KS, 0))
 
 
 def bootstrap(x: LweCiphertext, mu, cloud) -> LweCiphertext:
@@ -458,6 +492,57 @@ def bootstrap(x: LweCiphertext, mu, cloud) -> LweCiphertext:
 
     x: flat batch [B], split above batch_cap()."""
     return _chunked(_bootstrap_whole, x, mu, cloud)
+
+
+def bootstrap_paired(x: LweCiphertext, mu, cloud, pairs: int, b_add: int) -> LweCiphertext:
+    """A gate that sums two bootstraps before one key switch (``gates.MUX``,
+    ``gates.prefix_combine``). x: flat batch of 2P + R samples, P = `pairs`;
+    the P + R outputs are the key switch of extracted samples i and P + i
+    summed with (0, `b_add`), i < P, then of samples 2P .. 2P + R - 1.
+
+    On the fused route the key-switch kernels sum the pairs: a batch above
+    batch_cap() goes in chunks of whole pairs (samples i0..i1 and
+    P + i0..P + i1 together), then the R unpaired samples. Elsewhere,
+    bootstrap_pairs_split."""
+    P, B = pairs, x.b.shape[0]
+    cmux.ks_outputs(B, P)
+    if not _fused(x, cloud):
+        return bootstrap_pairs_split(x, mu, cloud, P, b_add)
+    PAIR_KS["kernel"] += 1
+    cap = batch_cap(x.device, cloud)
+    if B <= cap:
+        return _paired_fused(x, mu, cloud, P, b_add)
+    per_sample = isinstance(mu, torch.Tensor) and mu.dim() > 0 and mu.shape[0] == B
+    step = max(1, cap // 2)
+    parts = []
+    for i0 in range(0, P, step):
+        i1 = min(P, i0 + step)
+        idx = torch.cat([torch.arange(i0, i1, device=x.device),
+                         torch.arange(P + i0, P + i1, device=x.device)])
+        parts.append(_paired_fused(x[idx], mu[idx] if per_sample else mu, cloud, i1 - i0,
+                                   b_add))
+    if B > 2 * P:
+        parts.append(_chunked(_bootstrap_whole, x[2 * P:], mu[2 * P:] if per_sample else mu,
+                              cloud))
+    return LweCiphertext(*(torch.cat([getattr(p, f) for p in parts]) for f in ("a", "b", "cv")))
+
+
+def _paired_fused(x: LweCiphertext, mu, cloud, pairs: int, b_add: int) -> LweCiphertext:
+    """bootstrap_paired's fused route on at most batch_cap() samples."""
+    return _chunked(functools.partial(_bootstrap_fused_ks, pairs=pairs, b_add=b_add),
+                    x, mu, cloud, pairs=pairs)
+
+
+def bootstrap_pairs_split(x: LweCiphertext, mu, cloud, pairs: int, b_add: int) -> LweCiphertext:
+    """bootstrap_paired on the split route: bootstrap_woks, the pairs'
+    extracted samples summed with (0, `b_add`), then key_switch."""
+    P = pairs
+    a_ext, b_ext, cv = bootstrap_woks(x, mu, cloud)
+    PAIR_KS["split"] += 1
+    return key_switch(torch.cat([a_ext[:P] + a_ext[P:2 * P], a_ext[2 * P:]]),
+                      torch.cat([b_add + b_ext[:P] + b_ext[P:2 * P], b_ext[2 * P:]]),
+                      cloud.ks_table, torch.cat([cv[:P] + cv[P:2 * P], cv[2 * P:]]),
+                      cloud.params)
 
 
 def _fused(x: LweCiphertext, cloud) -> bool:

@@ -87,7 +87,8 @@ using tfhe::subm;
 
 extern "C" int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t* r,
                               int32_t* ext, int B, int N, int C, int t, int basebit,
-                              unsigned int prec_offset, int mma, int split, cudaStream_t stream);
+                              unsigned int prec_offset, int mma, int split, int pairs,
+                              unsigned int b_add, cudaStream_t stream);
 
 namespace {
 
@@ -525,19 +526,19 @@ int tfhe_blind_rotate_small_in_flight(int N, int l, int cluster, int* in_flight)
 }
 
 // The bootstrap of a small batch: the blind rotate on acc int32[B][k+1][N]
-// (in place), then sample extract and key switch (cmux.cu tfhe_keyswitch)
-// into r int32[B][C] and ext int32[2][B].
+// (in place), then sample extract and key switch (cmux.cu tfhe_keyswitch,
+// paired where pairs > 0) into r int32[B - pairs][C] and ext int32[2][B - pairs].
 int tfhe_blind_rotate_small_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                                const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
                                int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N,
                                int l, int bgbit, unsigned int offset, int cluster, int C, int t,
                                int basebit, unsigned int prec_offset, int mma, int split,
-                               cudaStream_t stream) {
+                               int pairs, unsigned int b_add, cudaStream_t stream) {
   const cudaError_t err = launch_small(acc, kOut * N, N, bara, bk, bksh, tab, B, n, N, l, bgbit,
                                        offset, cluster, stream);
   if (err != cudaSuccess) return (int)err;
   return tfhe_keyswitch(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset, mma, split,
-                        stream);
+                        pairs, b_add, stream);
 }
 
 }  // extern "C"

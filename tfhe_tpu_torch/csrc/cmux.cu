@@ -184,24 +184,47 @@ __global__ void __launch_bounds__((tfhe::CmuxBlock<LOGN, GL, S, NBUF>::NT),
 // exact and the same whatever the order; ks_finish_kernel recombines the
 // limbs into r int32[B][C] and writes ext int32[2][B] = (b_ext, count of
 // nonzero digits).
+//
+// Paired mode (PAIRED, `pairs` P > 0: a MUX or a parallel-prefix combine,
+// whose gate sums two bootstrapped samples before one key switch). The
+// accumulator holds B + P samples and the output B: output b < P key-switches
+// the sum of samples b and P + b plus (0, b_add), output b >= P sample P + b.
+// Extraction and key switch are linear mod 2^32, so summing the two
+// accumulators' words where u is read is the sum of the extracted samples;
+// the count of nonzero digits is the summed sample's. PAIRED is a template
+// parameter so that the plain key switch, behind every bootstrap, holds no
+// instruction of the paired mode.
+
+// Coefficient m of the accumulator output b reads, a0 pointing at sample
+// PAIRED ? P + b : b: in paired mode output b < P adds sample b.
+template <bool PAIRED>
+__device__ __forceinline__ uint32_t ks_word(const uint32_t* a0, int m, int b, int pairs, int N) {
+  uint32_t v = __ldg(a0 + m);
+  if constexpr (PAIRED) {
+    if (b < pairs) v += __ldg(a0 - (size_t)pairs * kOut * N + m);
+  }
+  return v;
+}
 
 // Small batches. Grid (S, B): block s of sample b gathers the rows of `per`
 // = N/S coefficients. Thread tid owns bytes 16*tid .. 16*tid+15 of a row
 // (blockDim = 4*C/16), so a row is one 16-byte load per thread and the t
 // digits of a coefficient are t independent loads in flight.
+template <bool PAIRED>
 __global__ void ks_gather_kernel(const int32_t* __restrict__ acc, const int8_t* __restrict__ tks,
                                  int32_t* __restrict__ sums, int N, int C, int t, int basebit,
-                                 uint32_t prec_offset, int per) {
+                                 uint32_t prec_offset, int per, int pairs) {
   extern __shared__ uint32_t su[];    // [max(per, 16*blockDim)]
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int m0 = blockIdx.x * per;
   const uint32_t dmask = (1u << basebit) - 1u;
   const int bm1 = (1 << basebit) - 1;
-  const uint32_t* a0 = reinterpret_cast<const uint32_t*>(acc) + (size_t)b * kOut * N;
+  const uint32_t* a0 =
+      reinterpret_cast<const uint32_t*>(acc) + (size_t)(PAIRED ? pairs + b : b) * kOut * N;
   for (int i = tid; i < per; i += blockDim.x) {
     const int m = m0 + i;
-    const uint32_t v = __ldg(a0 + m);
+    const uint32_t v = ks_word<PAIRED>(a0, m, b, pairs, N);
     su[i] = (m == 0 ? v : 0u - v) + prec_offset;
   }
   __syncthreads();
@@ -287,10 +310,11 @@ __device__ __forceinline__ void cp_async16(void* dst_shared, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
+template <bool PAIRED>
 __global__ void __launch_bounds__(256)
     ks_mma_kernel(const int32_t* __restrict__ acc, const int8_t* __restrict__ tks,
                   int32_t* __restrict__ sums, int B, int N, int C, int t, int basebit,
-                  uint32_t prec_offset, int per) {
+                  uint32_t prec_offset, int per, int pairs) {
   __shared__ __align__(16) uint32_t stage[kMmaStages * kMmaStageWords];
   __shared__ uint32_t ut[kMmaRows * kMmaUStride];     // u of this block's samples, one step
   const int tid = threadIdx.x;
@@ -337,8 +361,9 @@ __global__ void __launch_bounds__(256)
         const int m = m0 + 32 * mb + mm;
         uint32_t u = 0u;
         if (b0 + rr < B) {
-          const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(acc) +
-                                   (size_t)(b0 + rr) * kOut * N + m);
+          const uint32_t* ar = reinterpret_cast<const uint32_t*>(acc) +
+                               (size_t)(b0 + rr + (PAIRED ? pairs : 0)) * kOut * N;
+          const uint32_t v = ks_word<PAIRED>(ar, m, b0 + rr, pairs, N);
           u = (m == 0 ? v : 0u - v) + prec_offset;
         }
         ut[rr * kMmaUStride + mm] = u;
@@ -423,19 +448,22 @@ __global__ void __launch_bounds__(256)
 
 // Limb recombine l0 + l1<<8 + l2<<16 + l3<<24 (uint32 wrap) of the summed
 // planes, b_ext and the count of nonzero digits; one block per sample.
+template <bool PAIRED>
 __global__ void ks_finish_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ sums,
                                  int32_t* __restrict__ r, int32_t* __restrict__ ext, int B, int N,
-                                 int C, int t, int basebit, uint32_t prec_offset) {
+                                 int C, int t, int basebit, uint32_t prec_offset, int pairs,
+                                 uint32_t b_add) {
   __shared__ unsigned int count;
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const uint32_t dmask = (1u << basebit) - 1u;
-  const uint32_t* a0 = reinterpret_cast<const uint32_t*>(acc) + (size_t)b * kOut * N;
+  const uint32_t* a0 =
+      reinterpret_cast<const uint32_t*>(acc) + (size_t)(PAIRED ? pairs + b : b) * kOut * N;
   if (tid == 0) count = 0u;
   __syncthreads();
   unsigned int nnz = 0;
   for (int m = tid; m < N; m += blockDim.x) {
-    const uint32_t v = __ldg(a0 + m);
+    const uint32_t v = ks_word<PAIRED>(a0, m, b, pairs, N);
     const uint32_t u = (m == 0 ? v : 0u - v) + prec_offset;
     for (int jd = 0; jd < t; ++jd) nnz += ((u >> (32 - (jd + 1) * basebit)) & dmask) != 0u;
   }
@@ -447,7 +475,11 @@ __global__ void ks_finish_kernel(const int32_t* __restrict__ acc, const int32_t*
   }
   __syncthreads();
   if (tid == 0) {
-    ext[b] = acc[(size_t)b * kOut * N + N];
+    if constexpr (PAIRED) {
+      ext[b] = (int32_t)(ks_word<true>(a0, N, b, pairs, N) + (b < pairs ? b_add : 0u));
+    } else {
+      ext[b] = acc[(size_t)b * kOut * N + N];
+    }
     ext[B + b] = (int32_t)count;
   }
 }
@@ -567,6 +599,34 @@ cudaError_t launch_blind_rotate(int32_t* acc, const int32_t* bara, const uint32_
   return launch_cmux(c, N, l, S, nbuf);
 }
 
+// The key switch's launches: an arm, then ks_finish_kernel; B the samples of
+// the output.
+template <bool PAIRED>
+cudaError_t launch_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t* r,
+                             int32_t* ext, int B, int N, int C, int t, int basebit,
+                             uint32_t prec_offset, int mma, int split, int pairs, uint32_t b_add,
+                             cudaStream_t stream) {
+  const int per = N / split;
+  if (mma) {
+    if (per % 32 || (4 * C) % kMmaCols) return cudaErrorInvalidValue;
+    const dim3 grid(4 * C / kMmaCols, (B + kMmaRows - 1) / kMmaRows, split);
+    ks_mma_kernel<PAIRED><<<grid, 256, 0, stream>>>(acc, tks, sums, B, N, C, t, basebit,
+                                                    prec_offset, per, pairs);
+  } else {
+    const int threads = C / 4;
+    const size_t smem = sizeof(uint32_t) * (size_t)(per > 16 * threads ? per : 16 * threads);
+    const cudaError_t err = allow_smem(ks_gather_kernel<PAIRED>, smem);
+    if (err != cudaSuccess) return err;
+    ks_gather_kernel<PAIRED><<<dim3(split, B), threads, smem, stream>>>(
+        acc, tks, sums, N, C, t, basebit, prec_offset, per, pairs);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ks_finish_kernel<PAIRED><<<B, 128, 0, stream>>>(acc, sums, r, ext, B, N, C, t, basebit,
+                                                  prec_offset, pairs, b_add);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -593,45 +653,36 @@ int tfhe_cmux_smem_bytes(int N, int l, int S, int nbuf, int* bytes) {
   return (int)launch_cmux(c, N, l, S, nbuf);
 }
 
-// Sample extract and key switch of acc int32[B][2][N] into r int32[B][C] and
-// ext int32[2][B]; sums int32[B][4*C] is scratch that the caller has zeroed.
-// mma == 0: the gather arm with `split` blocks per sample; else the
-// tensor-core arm with N cut into `split` ranges (ops/cmux.py keyswitch_plan
-// chooses). Also called by blind_rotate_small.cu after its blind rotate.
+// Sample extract and key switch of acc int32[B][2][N] into r int32[B - pairs][C]
+// and ext int32[2][B - pairs]; sums int32[B - pairs][4*C] is scratch that the
+// caller has zeroed. pairs > 0: the paired mode (above), b_add added to the
+// b of each summed pair. mma == 0: the gather arm with `split` blocks per
+// sample; else the tensor-core arm with N cut into `split` ranges
+// (ops/cmux.py keyswitch_plan chooses, by the output's samples). Also called
+// by blind_rotate_small.cu after its blind rotate.
 int tfhe_keyswitch(const int32_t* acc, const int8_t* tks, int32_t* sums, int32_t* r, int32_t* ext,
                    int B, int N, int C, int t, int basebit, unsigned int prec_offset, int mma,
-                   int split, cudaStream_t stream) {
-  if (split < 1 || N % split) return (int)cudaErrorInvalidValue;
-  const int per = N / split;
-  if (mma) {
-    if (per % 32 || (4 * C) % kMmaCols) return (int)cudaErrorInvalidValue;
-    const dim3 grid(4 * C / kMmaCols, (B + kMmaRows - 1) / kMmaRows, split);
-    ks_mma_kernel<<<grid, 256, 0, stream>>>(acc, tks, sums, B, N, C, t, basebit, prec_offset, per);
-  } else {
-    const int threads = C / 4;
-    const size_t smem = sizeof(uint32_t) * (size_t)(per > 16 * threads ? per : 16 * threads);
-    const cudaError_t err = allow_smem(ks_gather_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    ks_gather_kernel<<<dim3(split, B), threads, smem, stream>>>(acc, tks, sums, N, C, t, basebit,
-                                                                prec_offset, per);
+                   int split, int pairs, unsigned int b_add, cudaStream_t stream) {
+  if (split < 1 || N % split || pairs < 0 || 2 * pairs > B) return (int)cudaErrorInvalidValue;
+  if (pairs > 0) {
+    return (int)launch_keyswitch<true>(acc, tks, sums, r, ext, B - pairs, N, C, t, basebit,
+                                       prec_offset, mma, split, pairs, b_add, stream);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ks_finish_kernel<<<B, 128, 0, stream>>>(acc, sums, r, ext, B, N, C, t, basebit, prec_offset);
-  return (int)cudaGetLastError();
+  return (int)launch_keyswitch<false>(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset,
+                                      mma, split, 0, 0u, stream);
 }
 
 int tfhe_blind_rotate_ks(int32_t* acc, const int32_t* bara, const uint32_t* bk,
                          const uint32_t* bksh, const uint32_t* tab, const int8_t* tks,
                          int32_t* sums, int32_t* r, int32_t* ext, int B, int n, int N, int l,
                          int bgbit, unsigned int offset, int S, int nbuf, int C, int t,
-                         int basebit, unsigned int prec_offset, int mma, int split,
-                         cudaStream_t stream) {
+                         int basebit, unsigned int prec_offset, int mma, int split, int pairs,
+                         unsigned int b_add, cudaStream_t stream) {
   const cudaError_t err =
       launch_blind_rotate(acc, bara, bk, bksh, tab, B, n, N, l, bgbit, offset, S, nbuf, stream);
   if (err != cudaSuccess) return (int)err;
   return tfhe_keyswitch(acc, tks, sums, r, ext, B, N, C, t, basebit, prec_offset, mma, split,
-                        stream);
+                        pairs, b_add, stream);
 }
 
 const char* tfhe_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

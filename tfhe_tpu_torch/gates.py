@@ -126,11 +126,8 @@ def MUX(a: LweCiphertext, b: LweCiphertext, c: LweCiphertext, cloud) -> LweCiphe
     # AND(a, b) image and AND(not a, c) image
     t1 = _affine2(af, bf, -_1_8, 1, 1)
     t2 = _affine2(af, cf, -_1_8, -1, 1)
-    a_ext, b_ext, cv = bs.bootstrap_woks(lwe_concat([t1, t2]), MU, cloud)
-    # temp = (0, 1/8) + u1 + u2 over the extracted params, then one key switch
-    out = bs.key_switch(a_ext[:B] + a_ext[B:], _1_8 + b_ext[:B] + b_ext[B:],
-                        cloud.ks_table, cv[:B] + cv[B:], cloud.params)
-    return out.reshape(shape)
+    # one key switch of temp = (0, 1/8) + u1 + u2 over the extracted params
+    return bs.bootstrap_paired(lwe_concat([t1, t2]), MU, cloud, B, _1_8).reshape(shape)
 
 
 # ---- 3-input bootstrapped gates ------------------------------------------
@@ -233,9 +230,5 @@ def prefix_combine(g_hi, g_lo, p_hi, p_lo, cloud):
     t1 = _affine2(pif, gsf, -_1_8, 1, 1)      # AND(p_hi, g_lo)
     t2 = _affine2(pif, gif, -_1_8, -1, 1)     # AND(not p_hi, g_hi)
     t3 = _affine2(pif, psf, -_1_8, 1, 1)      # AND(p_hi, p_lo)
-    a_ext, b_ext, cv = bs.bootstrap_woks(lwe_concat([t1, t2, t3]), MU, cloud)
-    a_all = torch.cat([a_ext[:B] + a_ext[B:2 * B], a_ext[2 * B:]])
-    b_all = torch.cat([_1_8 + b_ext[:B] + b_ext[B:2 * B], b_ext[2 * B:]])
-    cv_all = torch.cat([cv[:B] + cv[B:2 * B], cv[2 * B:]])
-    out = bs.key_switch(a_all, b_all, cloud.ks_table, cv_all, cloud.params)
+    out = bs.bootstrap_paired(lwe_concat([t1, t2, t3]), MU, cloud, B, _1_8)
     return out[:B].reshape(shape), out[B:].reshape(shape)

@@ -101,12 +101,12 @@ def library() -> ctypes.CDLL:
     lib.tfhe_cmux_delta.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
     lib.tfhe_blind_rotate.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, I, P]
     lib.tfhe_blind_rotate_ks.argtypes = [P, P, P, P, P, P, P, P, P,
-                                         I, I, I, I, I, U, I, I, I, I, I, U, I, I, P]
+                                         I, I, I, I, I, U, I, I, I, I, I, U, I, I, I, U, P]
     lib.tfhe_cmux_smem_bytes.argtypes = [I, I, I, I, ctypes.POINTER(I)]
-    lib.tfhe_keyswitch.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, I, P]
+    lib.tfhe_keyswitch.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, I, I, U, P]
     lib.tfhe_blind_rotate_small.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, P]
     lib.tfhe_blind_rotate_small_ks.argtypes = [P, P, P, P, P, P, P, P, P,
-                                               I, I, I, I, I, U, I, I, I, I, U, I, I, P]
+                                               I, I, I, I, I, U, I, I, I, I, U, I, I, I, U, P]
     lib.tfhe_blind_rotate_small_in_flight.argtypes = [I, I, I, ctypes.POINTER(I)]
     for fn in (lib.tfhe_blind_rotate_small_in_flight, lib.tfhe_cmux_smem_bytes,
                lib.tfhe_cmux_delta, lib.tfhe_blind_rotate, lib.tfhe_blind_rotate_ks,

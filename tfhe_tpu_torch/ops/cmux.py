@@ -24,6 +24,14 @@ The kernels take k = 1 and a gadget length l of 2 (PARAMS_110) or 3
 |                        | and key switch)                                 |
 | keyswitch              | the key-switch epilogue of the above, alone     |
 
+The key switch (``keyswitch``, ``blind_rotate_ks_fused`` and
+``cmux_packed.blind_rotate_packed_ks_fused``) also runs paired: with
+`pairs` P > 0 the accumulator holds 2P + R samples, and output i < P is the
+key switch of extracted samples i and P + i summed with (0, `b_add`), output
+P + j that of sample 2P + j (``keyswitch_ref`` says it in torch). A gate that
+sums two bootstraps before one key switch (``gates.MUX``,
+``gates.prefix_combine``) so needs no extracted samples and no other product.
+
 The blind-rotate kernels (K1-K4) hold S whole samples in a block, which walk
 the steps together and share each read of a key slice; ``blind_rotate_plan``
 picks the form (S, key buffers in shared memory) that fits the block at this
@@ -398,91 +406,123 @@ def keyswitch_plan(B: int, N: int, C: int) -> tuple:
     return 1, mma_split(B, N, C)
 
 
-def _launch_keyswitch(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams, plan=None):
-    """The key-switch kernel on acc int32[B, k+1, N] (contiguous, on the card)."""
+def ks_outputs(B: int, pairs: int) -> int:
+    """The samples a key switch of B accumulators gives with `pairs` pairs
+    summed: B - pairs, where 0 <= 2 * pairs <= B."""
+    if not 0 <= 2 * pairs <= B:
+        raise ValueError(f"pairs = {pairs}: want 0 <= 2 * pairs <= {B}, the accumulators")
+    return B - pairs
+
+
+def _ks_buffers(B: int, C: int, device: torch.device) -> tuple:
+    """The key switch's zeroed scratch sums int32[B, 4*C] and its outputs r
+    int32[B, C] and ext int32[2, B], for B output samples."""
+    return (torch.zeros((B, 4 * C), dtype=torch.int32, device=device),
+            torch.empty((B, C), dtype=torch.int32, device=device),
+            torch.empty((2, B), dtype=torch.int32, device=device))
+
+
+def _launch_keyswitch(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams, plan=None,
+                      pairs: int = 0, b_add: int = 0):
+    """The key-switch kernel on acc int32[B, k+1, N] (contiguous, on the
+    card), `pairs` pairs summed (the plan by the output's samples)."""
     B = acc.shape[0]
+    out = ks_outputs(B, pairs)
     C = _check_tks(tks_lane, params)
-    mma, split = plan or keyswitch_plan(B, params.N, C)
-    sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
-    r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
-    ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+    mma, split = plan or keyswitch_plan(out, params.N, C)
+    sums, r, ext = _ks_buffers(out, C, acc.device)
     check(library().tfhe_keyswitch(
         acc.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
         B, params.N, C, params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split,
-        _stream(acc)))
-    count_launch("keyswitch", B)
+        pairs, b_add & 0xFFFFFFFF, _stream(acc)))
+    count_launch("keyswitch", out)
     return r, ext
 
 
-def keyswitch(acc_t: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
+def keyswitch(acc_t: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams,
+              pairs: int = 0, b_add: int = 0):
     """Sample extract and key switch of a rotated accumulator.
 
-    acc_t: int32[k+1, N, B]; tks_lane: int8[t*(base-1), N, 4*C]. Returns
-    (r int32[B, C], ext int32[2, B]) as blind_rotate_ks_fused."""
+    acc_t: int32[k+1, N, B]; tks_lane: int8[t*(base-1), N, 4*C]; `pairs`,
+    `b_add`: the paired mode (above). Returns (r int32[B - pairs, C],
+    ext int32[2, B - pairs]) as blind_rotate_ks_fused."""
     if not _on_cuda(acc_t, tks_lane):
-        return keyswitch_ref(acc_t, tks_lane, params)
+        return keyswitch_ref(acc_t, tks_lane, params, pairs, b_add)
     with span("tfhe.kernel.keyswitch", batch=acc_t.shape[-1], l=params.bk_l):
         _check_params(params)
-        return _launch_keyswitch(_acc_rows(acc_t, params), tks_lane, params)
+        return _launch_keyswitch(_acc_rows(acc_t, params), tks_lane, params, pairs=pairs,
+                                 b_add=b_add)
 
 
-def keyswitch_ref(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams):
+def keyswitch_ref(acc: torch.Tensor, tks_lane: torch.Tensor, params: TfheParams,
+                  pairs: int = 0, b_add: int = 0):
     """Plain version of the key-switch kernel on a rotated accumulator
-    acc int32[k+1, N, B]: native-order extract, one-hot digit matrix,
-    limb-table product, recombine. Returns (r, ext) as blind_rotate_ks_fused."""
+    acc int32[k+1, N, B]: the pairs summed (int32 wrap), native-order
+    extract, one-hot digit matrix, limb-table product, recombine. Returns
+    (r, ext) as blind_rotate_ks_fused."""
+    P = pairs
+    ks_outputs(acc.shape[-1], P)
+    if P:
+        acc = torch.cat([acc[..., :P] + acc[..., P:2 * P], acc[..., 2 * P:]], dim=-1)
     a0 = acc[0].T                                                           # [B, N]
     x = torch.cat([a0[:, :1], -a0[:, 1:]], dim=1)
     TB, N, C4 = tks_lane.shape
     onehot, nnz = bs.ks_onehot(x, params, with_nnz=True)     # rows (m, j, h-1)
     onehot = onehot.reshape(x.shape[0], N, TB).transpose(1, 2).reshape(x.shape[0], TB * N)
     r = bs.ks_recombine(bs.int8_matmul(onehot, tks_lane.reshape(TB * N, C4)))
-    return r, torch.stack([acc[1, 0, :], nnz])
+    b_ext = acc[1, 0, :]
+    if P:
+        b_ext = torch.cat([b_ext[:P] + b_add, b_ext[P:]])
+    return r, torch.stack([b_ext, nnz])
 
 
 # ------------------------------------------------------------------ K4
 
 def blind_rotate_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
                               bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
-                              params: TfheParams):
+                              params: TfheParams, pairs: int = 0, b_add: int = 0):
     """Plain version of blind_rotate_ks_fused: blind rotate, then keyswitch_ref."""
     acc = blind_rotate_fused_ref(acc_t, bara, bk_rows, bksh_rows, params)   # [2, N, B]
-    return keyswitch_ref(acc, tks_lane, params)
+    return keyswitch_ref(acc, tks_lane, params, pairs, b_add)
 
 
 def blind_rotate_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_rows: torch.Tensor,
                           bksh_rows: torch.Tensor, tks_lane: torch.Tensor,
-                          params: TfheParams):
+                          params: TfheParams, pairs: int = 0, b_add: int = 0):
     """Blind rotate, sample extract and key switch.
 
     acc_t: int32[k+1, N, B]; bara: int32[n, B]; tks_lane: the permuted KS limb
-    table int8[t*(base-1), N, 4*C] (CloudKey.ks_table_perm). Returns
-    (r int32[B, C], ext int32[2, B]); the caller finishes with
-    a = -r[:, :n], b = ext[0] - r[:, n], cv from ext[1] (the count of nonzero
-    digits). On CUDA: the blind-rotate kernel, then the key-switch kernel."""
+    table int8[t*(base-1), N, 4*C] (CloudKey.ks_table_perm); `pairs`,
+    `b_add`: the paired mode of the key switch (above). Returns
+    (r int32[B', C], ext int32[2, B']), B' = B - pairs; the caller finishes
+    with a = -r[:, :n], b = ext[0] - r[:, n], cv from ext[1] (the count of
+    nonzero digits). On CUDA: the blind-rotate kernel, then the key-switch
+    kernel."""
     if not _on_cuda(acc_t, bara, bk_rows, bksh_rows, tks_lane):
-        return blind_rotate_ks_fused_ref(acc_t, bara, bk_rows, bksh_rows, tks_lane, params)
+        return blind_rotate_ks_fused_ref(acc_t, bara, bk_rows, bksh_rows, tks_lane, params,
+                                         pairs, b_add)
     with span("tfhe.kernel.blind_rotate_ks_fused", batch=acc_t.shape[-1]) as sp:
         _check_params(params)
         acc = _acc_rows(acc_t, params)
         B = acc.shape[0]
+        out = ks_outputs(B, pairs)
         n = bara.shape[0]
         _expect(bara, torch.int32, (n, B), "bara")
         _check_bk(bk_rows, bksh_rows, (n,), params)
         C = _check_tks(tks_lane, params)
         bara_b = bara.T.contiguous()
-        mma, split = keyswitch_plan(B, params.N, C)
+        mma, split = keyswitch_plan(out, params.N, C)
         S, nbuf = blind_rotate_plan(params.N, params.bk_l)
         if sp:
             sp.set(l=params.bk_l, form=form_name(S, nbuf))
-        sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
-        r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
-        ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+        sums, r, ext = _ks_buffers(out, C, acc.device)
         tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
         check(library().tfhe_blind_rotate_ks(
             acc.data_ptr(), bara_b.data_ptr(), bk_rows.data_ptr(), bksh_rows.data_ptr(),
             tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
             B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset, S, nbuf, C,
-            params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
+            params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, pairs,
+            b_add & 0xFFFFFFFF, _stream(acc)))
         count_launch("blind_rotate_ks_fused", B, (params.bk_l, S, nbuf))
-        count_launch("keyswitch", B)
+        count_launch("keyswitch", out)
         return r, ext

@@ -36,7 +36,8 @@ from ..core import bootstrap as bs
 from ..utils.profiling import span
 from ._build import check, library
 from .cmux import (_acc_rows, _check_batch, _check_params, _check_tks, _expect, _kernel_tables,
-                   _on_cuda, _stream, count_launch, keyswitch_plan, keyswitch_ref)
+                   _ks_buffers, _on_cuda, _stream, count_launch, keyswitch_plan, keyswitch_ref,
+                   ks_outputs)
 
 # the FORM_SAMPLES form (S, nbuf) of each cluster size
 CLUSTER_FORMS = {4: (1, 2), 2: (1, 0)}
@@ -152,42 +153,44 @@ def _launch_packed(acc: torch.Tensor, bara_b: torch.Tensor, bk_ntt: torch.Tensor
 
 def blind_rotate_packed_ks_fused_ref(acc_t: torch.Tensor, bara: torch.Tensor,
                                      bk_ntt: torch.Tensor, bk_ntt_shoup: torch.Tensor,
-                                     tks_lane: torch.Tensor, params: TfheParams):
+                                     tks_lane: torch.Tensor, params: TfheParams,
+                                     pairs: int = 0, b_add: int = 0):
     """Plain version of blind_rotate_packed_ks_fused."""
     acc = bs.blind_rotate(acc_t.permute(2, 0, 1), bara.T, bk_ntt, bk_ntt_shoup, params)
-    return keyswitch_ref(acc.permute(1, 2, 0), tks_lane, params)
+    return keyswitch_ref(acc.permute(1, 2, 0), tks_lane, params, pairs, b_add)
 
 
 def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt: torch.Tensor,
                                  bk_ntt_shoup: torch.Tensor, tks_lane: torch.Tensor,
-                                 params: TfheParams):
+                                 params: TfheParams, pairs: int = 0, b_add: int = 0):
     """Blind rotate of a small batch, sample extract and key switch: the
     interface of ``cmux.blind_rotate_ks_fused`` with the key in the bk_ntt
-    layout. acc_t: int32[k+1, N, B]; bara: int32[n, B]; tks_lane:
-    int8[t*(base-1), N, 4*C]. Returns (r int32[B, C], ext int32[2, B])."""
+    layout, the key switch paired as there. acc_t: int32[k+1, N, B]; bara:
+    int32[n, B]; tks_lane: int8[t*(base-1), N, 4*C]. Returns
+    (r int32[B', C], ext int32[2, B']), B' = B - pairs."""
     if not _on_cuda(acc_t, bara, bk_ntt, bk_ntt_shoup, tks_lane):
         return blind_rotate_packed_ks_fused_ref(acc_t, bara, bk_ntt, bk_ntt_shoup, tks_lane,
-                                                params)
+                                                params, pairs, b_add)
     with span("tfhe.kernel.blind_rotate_packed_ks_fused", batch=acc_t.shape[-1]) as sp:
         _check_params(params)
         _check_n(params)
         acc = _acc_rows(acc_t, params)
         B = acc.shape[0]
+        out = ks_outputs(B, pairs)
         n = bara.shape[0]
         bara_b = _check_bara(bara, B)
         _check_bk_ntt(bk_ntt, bk_ntt_shoup, n, params)
         C = _check_tks(tks_lane, params)
-        mma, split = keyswitch_plan(B, params.N, C)
+        mma, split = keyswitch_plan(out, params.N, C)
         cluster = small_cluster(B, params.N, acc.device, params.bk_l)
-        sums = torch.zeros((B, 4 * C), dtype=torch.int32, device=acc.device)
-        r = torch.empty((B, C), dtype=torch.int32, device=acc.device)
-        ext = torch.empty((2, B), dtype=torch.int32, device=acc.device)
+        sums, r, ext = _ks_buffers(out, C, acc.device)
         tab = _kernel_tables(params.N, params.halfBg, str(acc.device))
         check(library().tfhe_blind_rotate_small_ks(
             acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
             tab.data_ptr(), tks_lane.data_ptr(), sums.data_ptr(), r.data_ptr(), ext.data_ptr(),
             B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset, cluster, C,
-            params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, _stream(acc)))
+            params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, pairs,
+            b_add & 0xFFFFFFFF, _stream(acc)))
         count_launch("blind_rotate_fused_packed", B, _spanned_form(sp, params, cluster))
-        count_launch("keyswitch", B)
+        count_launch("keyswitch", out)
         return r, ext
