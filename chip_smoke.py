@@ -1632,11 +1632,12 @@ def check_graph_nodes(label: str, entry) -> str:
     for kernel, counters in NODE_COUNTERS.items():
         want.setdefault(counters, 0)
         want[counters] += by_kernel.get(kernel, 0)
-    launches = {c: sum(entry.launches[k] for k in c) for c in want}
+    counted = entry.counted["launches"]              # the kernels its capture launched
+    launches = {c: sum(counted.get(k, 0) for k in c) for c in want}
     launches[("keyswitch",)] *= 2                    # its arm and ks_finish_kernel
-    if want != launches or by_kernel.get("ks_finish_kernel", 0) != entry.launches["keyswitch"]:
+    if want != launches or by_kernel.get("ks_finish_kernel", 0) != counted.get("keyswitch", 0):
         raise AssertionError(f"[graph] {label}: kernel nodes {by_kernel} disagree with the "
-                             f"launches counted at its capture {entry.launches}")
+                             f"launches counted at its capture {counted}")
     k5 = sum(v for (kernel, _), v in clusters.items() if kernel == "blind_rotate_small_kernel")
     if k5 != sum(clusters.values()) or k5 != by_kernel.get("blind_rotate_small_kernel", 0):
         raise AssertionError(f"[graph] {label}: cluster kernel nodes {clusters}, K5's kernel "
@@ -1680,18 +1681,16 @@ def add_counts(total: dict, part: dict) -> None:
 
 
 def on_card(fn) -> dict:
-    """fn() on the card between synchronises, with the counts (the launches
-    and ``PAIR_KS``) set to 0 just before and read just after: its result,
+    """fn() on the card between synchronises, with the counts (every counter
+    of ``utils.profiling``) set to 0 just before and read just after: its result,
     wall ms, counts, and the peak of the device memory allocated during the
     call beside what was held before."""
-    from tfhe_tpu_torch.core import bootstrap as bs
-    from tfhe_tpu_torch.ops import cmux
+    from tfhe_tpu_torch.utils import profiling
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     PHASE_PEAK[0] = max(PHASE_PEAK[0], torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
-    cmux.reset_launches()
-    bs.reset_pair_ks()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()

@@ -28,7 +28,8 @@ from tfhe_tpu_torch import arith, config, gates
 from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core import keys, lwe
 from tfhe_tpu_torch.core.lwe import LweCiphertext
-from tfhe_tpu_torch.ops import cmux
+from tfhe_tpu_torch.ops import cmux, cmux_packed
+from tfhe_tpu_torch.utils import profiling
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NB = 4
@@ -38,8 +39,8 @@ class Recording:
     """Stand-in for ``arith.CudaGraph`` on CPU tensors: capture runs the
     circuit once (the outputs it returns are the graph's outputs), replay
     runs it again on the graph's input tensors and writes the results into
-    those outputs, and neither counts launches or adder decisions (the
-    graph's are counted by ``CircuitGraphs``)."""
+    those outputs, and neither leaves a count in the registered counters
+    (the graph's are counted by ``CircuitGraphs``)."""
     device_type = "cpu"
     log: list = []
 
@@ -54,11 +55,9 @@ class Recording:
 
     def replay(self):
         Recording.log.append("replay")
-        saved = dict(cmux.LAUNCHES), dict(cmux.SAMPLES), dict(arith.ADDER_ARMS)
+        saved = profiling.snapshot()
         new = self.run()
-        cmux.LAUNCHES.update(saved[0])
-        cmux.SAMPLES.update(saved[1])
-        arith.ADDER_ARMS.update(saved[2])
+        profiling.counts_since(saved)
         for o, n in zip(*((v,) if isinstance(v, LweCiphertext) else v for v in (self.out, new))):
             for f in ("a", "b", "cv"):
                 getattr(o, f).copy_(getattr(n, f))
@@ -126,23 +125,32 @@ def test_circuit_jit_enabled(monkeypatch):
 
 
 def test_policy_fingerprint_moves_with_every_route(monkeypatch):
+    """A circuit's key moves with every flag of config and every routing
+    value of core.bootstrap.route_fingerprint; the routing values move that
+    fingerprint itself."""
     sk = pt.keygen(pt.PARAMS_TOY, seed=1, device="cpu")
-    base = config.policy_fingerprint("cpu", sk.cloud)
-    assert config.policy_fingerprint("cpu", sk.cloud) == base
+    x, y = _random_ct(1), _random_ct(2)
+
+    def key():
+        return arith.circuit_key(arith.add.__wrapped__, (x, y, sk.cloud), (), x.device)[0]
+
+    base, route = key(), bs.route_fingerprint("cpu", sk.cloud)
+    assert key() == base and base[1][4:] == route
     for name, value in (("TFHE_TPU_LOOKAHEAD", "1"), ("TFHE_TPU_SEPTET", "1"),
                         ("TFHE_TPU_FUSEKS", "1"), ("TFHE_TPU_NOISE_MODEL", "tracked")):
         with config.overrides(**{name: value}):
-            assert config.policy_fingerprint("cpu", sk.cloud) != base, name
+            assert key() != base, name
     for module, name, value in ((cmux, "KS_GATHER_MAX", 0), (bs, "CPU_MAX_BATCH", 7)):
         with monkeypatch.context() as m:
             m.setattr(module, name, value)
-            assert config.policy_fingerprint("cpu", sk.cloud) != base, name
+            assert key() != base and bs.route_fingerprint("cpu", sk.cloud) != route, name
     for l, field, value in ((2, "small_batch_max", 100), (2, "k5_c4_ms", 2.5),
                             (2, "stage_glue_ms", 0.5), (3, "k3_wave_ms", 9.0)):
         with monkeypatch.context() as m:
             m.setitem(bs.WAVES, l, dataclasses.replace(bs.WAVES[l], **{field: value}))
-            assert config.policy_fingerprint("cpu", sk.cloud) != base, (l, field)
-    assert config.policy_fingerprint("cpu", sk.cloud) == base
+            assert key() != base, (l, field)
+            assert bs.route_fingerprint("cpu", sk.cloud) != route, (l, field)
+    assert key() == base
 
 
 # ------------------------------------------------------------------ the adders' arm
@@ -152,74 +160,86 @@ IN_FLIGHT = 30          # samples an H100 holds at once in K5's clusters of four
 P110 = pt.PARAMS_110
 
 
-@pytest.mark.parametrize("numbers,nbits,prefix", [
-    (1, 16, True), (2, 16, True), (4, 16, True), (1, 32, True), (1, 8, True),
-    (5, 16, False), (32, 16, False), (64, 16, False), (1, 4, False)])
-def test_adder_arm_by_the_cards_cost(monkeypatch, numbers, nbits, prefix):
-    """On CUDA the arm whose stages cost less on the card: prefix for a few
-    numbers, ripple for many (and where the stage counts tie, as at 4 bits);
-    on the CPU, or with no device, ripple, as tfhe_tpu. A pure function of
-    its arguments and the routing constants: it makes no CUDA call, which
-    would raise where torch has no CUDA."""
-    monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
-    assert config.lookahead_enabled(numbers, nbits, CUDA, IN_FLIGHT, P110) is prefix
-    assert config.lookahead_enabled(numbers, nbits, "cuda:1", IN_FLIGHT, P110) is prefix
-    assert config.lookahead_enabled(numbers, nbits, CPU, IN_FLIGHT, P110) is False
-    assert config.lookahead_enabled(numbers, nbits) is False
-    assert jconfig.lookahead_enabled(numbers, nbits) is False
-    for v in ("0", "1"):
-        with config.overrides(TFHE_TPU_LOOKAHEAD=v):
-            for device in (CUDA, CPU, None):
-                assert config.lookahead_enabled(numbers, nbits, device, IN_FLIGHT,
-                                                P110) is (v == "1")
-
-
-def test_adder_stages_and_their_prices():
-    """The stages each arm sends to bootstrap, and what a stage costs by the
-    route its batch takes: K5 in clusters of four up to IN_FLIGHT, then the
-    waves small_batch compares, then K3/K4's waves."""
-    assert config.adder_stages(1, 16) == ([2] * 16, [32, 45, 42, 36, 24, 15])
-    assert config.adder_stages(3, 4) == ([6] * 4, [24, 27, 18, 9])
-    assert config.adder_stages(2, 1) == ([4], [4])
-    w = bs.WAVES[2]
-    glue = w.stage_glue_ms
-    assert (bs.stage_ms(1, IN_FLIGHT, P110) == bs.stage_ms(30, IN_FLIGHT, P110)
-            == w.k5_c4_ms + glue)
-    assert bs.stage_ms(31, IN_FLIGHT, P110) == w.k5_tail_ms + glue
-    assert bs.stage_ms(132, IN_FLIGHT, P110) == w.k5_wave_ms + glue
-    assert bs.stage_ms(264, IN_FLIGHT, P110) == w.k3_wave_ms + glue
-    assert bs.stage_ms(1024, IN_FLIGHT, P110) == 4 * w.k3_wave_ms + glue
-    assert bs.stage_ms(1, 0, P110) == w.k3_wave_ms + glue       # no K5 (N > its limit)
-
-
-def test_adder_decisions_are_counted(monkeypatch):
-    """_latency_policy counts each decision in ADDER_ARMS; on CUDA it asks
-    how many samples the card holds in clusters of four
-    (cmux_packed.samples_in_flight, cached there), on the CPU nothing; the
-    forced flag wins on either."""
-    from tfhe_tpu_torch.ops import cmux_packed
-    monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
-    monkeypatch.setattr(arith, "ADDER_ARMS", {"prefix": 0, "ripple": 0})
+@pytest.fixture
+def card(monkeypatch):
+    """An H100 as the routes see it, with no CUDA call: K5 holds IN_FLIGHT
+    samples in clusters of four (cmux_packed.samples_in_flight), and the
+    current card is 0. Returns the list of what was asked."""
     asked = []
     monkeypatch.setattr(cmux_packed, "samples_in_flight",
                         lambda N, cluster, index, l=2: asked.append((N, cluster, index, l))
                         or IN_FLIGHT)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    return asked
+
+
+@pytest.mark.parametrize("numbers,nbits,prefix", [
+    (1, 16, True), (2, 16, True), (4, 16, True), (1, 32, True), (1, 8, True),
+    (5, 16, False), (32, 16, False), (64, 16, False), (1, 4, False)])
+def test_adder_arm_by_the_cards_cost(monkeypatch, card, numbers, nbits, prefix):
+    """On CUDA the arm whose stages cost less on the card: prefix for a few
+    numbers, ripple for many (and where the stage counts tie, as at 4 bits);
+    on the CPU ripple, as tfhe_tpu. A function of its arguments, the
+    routing constants and what the card holds in flight (the fixture's)."""
+    monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
+    cloud = SimpleNamespace(params=P110)
+    assert arith._latency_policy(numbers, nbits, CUDA, cloud) is prefix
+    assert arith._latency_policy(numbers, nbits, "cuda:1", cloud) is prefix
+    assert arith._latency_policy(numbers, nbits, CPU, cloud) is False
+    assert jconfig.lookahead_enabled(numbers, nbits) is False
+    for v in ("0", "1"):
+        with config.overrides(TFHE_TPU_LOOKAHEAD=v):
+            for device in (CUDA, CPU):
+                assert arith._latency_policy(numbers, nbits, device, cloud) is (v == "1")
+
+
+def test_adder_stages_and_their_prices(card):
+    """The stages each arm sends to bootstrap, and what a stage costs by the
+    route its batch takes: K5 in clusters of four up to IN_FLIGHT, then the
+    waves small_batch compares, then K3/K4's waves."""
+    assert arith.adder_stages(1, 16) == ([2] * 16, [32, 45, 42, 36, 24, 15])
+    assert arith.adder_stages(3, 4) == ([6] * 4, [24, 27, 18, 9])
+    assert arith.adder_stages(2, 1) == ([4], [4])
+    w = bs.WAVES[2]
+    glue = w.stage_glue_ms
+    assert bs.in_flight(CUDA, P110) == IN_FLIGHT and bs.in_flight(CPU, P110) == 0
+    assert (bs.stage_ms(1, P110, CUDA) == bs.stage_ms(30, P110, CUDA)
+            == w.k5_c4_ms + glue)
+    assert bs.stage_ms(31, P110, CUDA) == w.k5_tail_ms + glue
+    assert bs.stage_ms(132, P110, CUDA) == w.k5_wave_ms + glue
+    assert bs.stage_ms(264, P110, CUDA) == w.k3_wave_ms + glue
+    assert bs.stage_ms(1024, P110, CUDA) == 4 * w.k3_wave_ms + glue
+    big = dataclasses.replace(P110, N=2048)                      # no K5 (N > its limit)
+    assert bs.in_flight(CUDA, big) == 0
+    assert bs.stage_ms(1, big, CUDA) == bs.stage_ms(1, P110, CPU) == w.k3_wave_ms + glue
+
+
+def test_adder_decisions_are_counted(monkeypatch, card):
+    """_latency_policy counts each decision in ADDER_ARMS; on CUDA it prices
+    the stages by how many samples the card holds in clusters of four
+    (core.bootstrap.in_flight, through cmux_packed.samples_in_flight, cached
+    there), on the CPU or under the forced flag it asks nothing; the forced
+    flag wins on either."""
+    monkeypatch.delenv("TFHE_TPU_LOOKAHEAD", raising=False)
+    before = dict(arith.ADDER_ARMS)
     cloud = SimpleNamespace(params=pt.PARAMS_110)
     assert arith._latency_policy(1, 16, "cuda:0", cloud) is True
     assert arith._latency_policy(64, 16, "cuda:0", cloud) is False
+    assert card and set(card) == {(1024, 4, 0, 2)}
+    card.clear()
     assert arith._latency_policy(1, 16, "cpu", cloud) is False
-    assert asked == [(1024, 4, 0, 2)] * 2
     with config.overrides(TFHE_TPU_LOOKAHEAD="0"):
         assert arith._latency_policy(1, 16, "cuda:0", cloud) is False
     with config.overrides(TFHE_TPU_LOOKAHEAD="1"):
         assert arith._latency_policy(64, 16, "cpu", cloud) is True
-    assert arith.ADDER_ARMS == {"prefix": 2, "ripple": 3}
+    assert card == []
+    assert {k: arith.ADDER_ARMS[k] - v for k, v in before.items()} == {"prefix": 2, "ripple": 3}
 
 
-def test_replays_add_the_adder_decisions_of_their_capture(graphs, monkeypatch):
+def test_replays_add_the_adder_decisions_of_their_capture(graphs):
     """A captured circuit's decisions count on every replay, as its launches
     do, and once a call whatever the mode: the capture's own run adds none."""
-    monkeypatch.setattr(arith, "ADDER_ARMS", {"prefix": 0, "ripple": 0})
+    before = dict(arith.ADDER_ARMS)
     cloud = SimpleNamespace(params=pt.PARAMS_TOY)
 
     @arith.circuit
@@ -232,11 +252,45 @@ def test_replays_add_the_adder_decisions_of_their_capture(graphs, monkeypatch):
     counts = []
     for _ in range(4):
         two_adds(x, cloud)
-        counts.append(dict(arith.ADDER_ARMS))
+        counts.append({k: arith.ADDER_ARMS[k] - v for k, v in before.items()})
     assert Recording.log == ["capture", "replay", "replay", "replay"]
-    assert [c["ripple"] for c in counts] == [2, 4, 6, 8] and arith.ADDER_ARMS["prefix"] == 0
+    assert [c["ripple"] for c in counts] == [2, 4, 6, 8] and counts[-1]["prefix"] == 0
     entry = next(iter(graphs.entries.values()))
-    assert entry.arms == {"prefix": 0, "ripple": 2}
+    assert entry.counted["adder_arms"] == {"ripple": 2}
+
+
+def test_replays_carry_a_counter_no_module_names(graphs, monkeypatch):
+    """A counter registered through utils.profiling, which arith names
+    nowhere: the capture leaves it as it was, each replay adds what the
+    capture counted, and reset_counters() zeroes it with the others."""
+    monkeypatch.setattr(profiling, "_COUNTERS", dict(profiling._COUNTERS))
+    bumps = profiling.counter("test.bumps", ("bump",))
+    seen = []
+
+    class Watching(Recording):
+        def replay(self):
+            seen.append(dict(bumps))
+            super().replay()
+
+    graphs.graph = Watching
+
+    @arith.circuit
+    def bump(x, cloud):
+        bumps["bump"] += 3
+        bumps["x"] = bumps.get("x", 0) + 1
+        return LweCiphertext(x.a + 1, x.b, x.cv)
+
+    x, cloud = _random_ct(1), object()
+    counts = []
+    for _ in range(4):                          # eager, capture and replay, replay, replay
+        bump(x, cloud)
+        counts.append(dict(bumps))
+    assert seen[0] == {"bump": 3, "x": 1}       # right after the capture: as it was
+    assert counts == [{"bump": 3 * i, "x": i} for i in range(1, 5)]
+    entry = next(iter(graphs.entries.values()))
+    assert entry.counted["test.bumps"] == {"bump": 3, "x": 1}
+    profiling.reset_counters()
+    assert bumps == {"bump": 0} and not any(cmux.LAUNCHES.values())
 
 
 # ------------------------------------------------------------------ the key
@@ -298,7 +352,8 @@ def test_first_second_later_calls(graphs):
     ptrs = {t.data_ptr() for o in (second, third, fourth, entry.out) for t in (o.a, o.b)}
     assert len(ptrs) == 8                       # no result shares a tensor
     assert entry.refs == (cloud,)               # the graph holds its cloud key
-    assert entry.launches["keyswitch"] == 1 and entry.samples["keyswitch"] == 2 * NB
+    assert entry.counted["launches"] == {"keyswitch": 1}
+    assert entry.counted["samples"] == {"keyswitch": 2 * NB}
 
 
 def test_least_recently_used_key_goes_first(graphs):

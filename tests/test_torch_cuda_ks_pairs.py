@@ -21,6 +21,7 @@ import tfhe_tpu_torch as tt
 from tfhe_tpu_torch import arith, config, gates
 from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.ops import cmux, cmux_packed
+from tfhe_tpu_torch.utils import profiling
 from test_torch_cuda import _i32, _random_bk
 
 pytestmark = pytest.mark.cuda
@@ -157,7 +158,7 @@ def test_captured_circuits_take_the_paired_kernels(small16, name, monkeypatch):
     monkeypatch.setattr(arith, "GRAPHS", arith.CircuitGraphs(eager_calls=1))
     with config.overrides(TFHE_TPU_LOOKAHEAD="1"):
         with config.overrides(TFHE_TPU_CIRCUIT_JIT="0"):
-            bs.reset_pair_ks()
+            profiling.reset_counters()
             eager = [fn(*ct, sk.cloud) for ct in cts[1:]]
             torch.cuda.synchronize()
             per_call = bs.PAIR_KS["kernel"] // 2
@@ -166,11 +167,11 @@ def test_captured_circuits_take_the_paired_kernels(small16, name, monkeypatch):
             fn(*cts[0], sk.cloud)                              # the warm-up
             fn(*cts[0], sk.cloud)                              # the capture
             assert arith.GRAPHS.graphs() == 1
-            bs.reset_pair_ks()
+            profiling.reset_counters()
             replayed = [fn(*ct, sk.cloud) for ct in cts[1:]]
             torch.cuda.synchronize()
             assert bs.PAIR_KS == {"kernel": 2 * per_call, "split": 0}
-        bs.reset_pair_ks()
+        profiling.reset_counters()
         want = [fn(*(c.to("cpu") for c in ct), cpu_cloud) for ct in cts[1:]]
         assert bs.PAIR_KS == {"kernel": 0, "split": 2 * per_call}
     for e, r, w in zip(eager, replayed, want, strict=True):
@@ -202,8 +203,7 @@ def test_paired_batch_above_the_cap_goes_in_chunks_of_pairs(small16, monkeypatch
 
     whole = outputs()
     monkeypatch.setattr(bs, "batch_cap", lambda device, cloud: 5)
-    bs.reset_pair_ks()
-    cmux.reset_launches()
+    profiling.reset_counters()
     parts = outputs()
     torch.cuda.synchronize()
     assert bs.PAIR_KS == {"kernel": 1, "split": 0}

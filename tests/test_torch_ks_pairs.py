@@ -102,16 +102,16 @@ def test_gates_fused_route_equals_split_route(keysets, pname, kind, shape):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_pair_ks_counts_each_route(keysets, kind):
     """PAIR_KS counts a paired bootstrap where its route runs: "kernel" on the
-    fused route, "split" elsewhere; reset_pair_ks clears it."""
+    fused route, "split" elsewhere; profiling.reset_counters clears it."""
     sk = keysets["toy"]
-    bs.reset_pair_ks()
+    profiling.reset_counters()
     with config.overrides(TFHE_TPU_FUSEKS="1"):
         _gate(kind, sk, (3,), seed=1)
         _gate(kind, sk, (2,), seed=2)
     with config.overrides(TFHE_TPU_FUSEKS="0"):
         _gate(kind, sk, (3,), seed=3)
     assert bs.PAIR_KS == {"kernel": 2, "split": 1}
-    bs.reset_pair_ks()
+    profiling.reset_counters()
     assert bs.PAIR_KS == {"kernel": 0, "split": 0}
 
 
@@ -141,7 +141,7 @@ def test_paired_batch_above_the_cap_goes_in_chunks_of_pairs(keysets, monkeypatch
     sk = keysets["toy"]
     with config.overrides(TFHE_TPU_FUSEKS="1"):
         whole, want = _gate(kind, sk, (B,), seed=B)
-        bs.reset_pair_ks()
+        profiling.reset_counters()
         monkeypatch.setattr(bs, "CPU_MAX_BATCH", 5)
         calls, fused_ks = [], bs._bootstrap_fused_ks
 

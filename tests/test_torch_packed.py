@@ -5,6 +5,8 @@ The JAX packed kernel runs in interpret mode, as tests/test_pallas_kernel.py
 runs it on the CPU; the port's wrappers take their plain versions for CPU
 tensors. The CUDA kernel is held against those plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
+from types import SimpleNamespace
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,7 +18,7 @@ from tfhe_tpu.ops import cmux_pallas as jcp
 from tfhe_tpu.ops import cmux_pallas_packed as jcpp
 from tfhe_tpu.utils import phasesim as jphasesim
 import tfhe_tpu_torch as pt
-from tfhe_tpu_torch import config, gates
+from tfhe_tpu_torch import arith, config, gates
 from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core import keys, lwe
 from tfhe_tpu_torch.ops import cmux, cmux_packed
@@ -164,7 +166,8 @@ def test_circuit_flags_match_tfhe_tpu():
     for env in ({}, {"TFHE_TPU_LOOKAHEAD": "1", "TFHE_TPU_SEPTET": "1",
                      "TFHE_TPU_NOISE_MODEL": "tracked"}):
         with config.overrides(**env), jconfig.overrides(**env):
-            assert config.lookahead_enabled(1, 16) == jconfig.lookahead_enabled(1, 16)
+            assert (arith._latency_policy(1, 16, "cpu", SimpleNamespace(params=pt.PARAMS_TOY))
+                    == jconfig.lookahead_enabled(1, 16))
             assert config.septet_enabled(16) == jconfig.septet_enabled(16)
             assert config.noise_model() == jconfig.noise_model()
     with config.overrides(TFHE_TPU_NOISE_MODEL="bogus"), pytest.raises(ValueError):

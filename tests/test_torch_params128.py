@@ -9,17 +9,18 @@ import dataclasses
 import importlib.util
 import os
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 import tfhe_tpu_torch as pt
-from tfhe_tpu_torch import config, gates
+from tfhe_tpu_torch import arith, config, gates
 from tfhe_tpu_torch.core import bootstrap as bs
 from tfhe_tpu_torch.core.keys import cloud_from_raw
 from tfhe_tpu_torch.core.lwe import LweCiphertext
-from tfhe_tpu_torch.ops import cmux
+from tfhe_tpu_torch.ops import cmux, cmux_packed
 
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -102,21 +103,29 @@ def _old_stage(B, in_flight):
     return rotate + OLD["glue"]
 
 
+@pytest.fixture
+def card30(monkeypatch):
+    """cuda:0 holding 30 samples in K5's clusters of four, with no CUDA call."""
+    monkeypatch.setattr(cmux_packed, "samples_in_flight", lambda N, cluster, index, l: 30)
+    return torch.device("cuda", 0)
+
+
 @pytest.mark.parametrize("params", [pt.PARAMS_110, pt.PARAMS_TOY, pt.PARAMS_SMALL,
                                     dataclasses.replace(pt.PARAMS_TOY, bk_l=4, bk_Bgbit=6)],
                          ids=["110", "toy", "small", "cpu_only_l4"])
-def test_routing_at_gadget_length_two_is_unchanged(params):
+def test_routing_at_gadget_length_two_is_unchanged(params, card30):
     """small_batch and stage_ms at every batch to 4096, both in-flight counts
-    the card gives (30 and none), return what they returned with one set; a
-    set the kernels do not take (l = 4, the CPU path only) routes so too."""
+    the card gives (30 and none: the CPU's), return what they returned with
+    one set; a set the kernels do not take (l = 4, the CPU path only) routes
+    so too."""
     for B in range(1, 4097):
         assert bs.small_batch(B, params) is _old_small(B), B
-        for in_flight in (30, 0):
-            assert bs.stage_ms(B, in_flight, params) == _old_stage(B, in_flight), (B, in_flight)
+        for in_flight, device in ((30, card30), (0, torch.device("cpu"))):
+            assert bs.stage_ms(B, params, device) == _old_stage(B, in_flight), (B, in_flight)
     assert bs.waves(params) == bs.WAVES[2] == bs.Waves(*OLD.values())
 
 
-def test_routing_at_params_128_follows_its_sweep():
+def test_routing_at_params_128_follows_its_sweep(card30):
     """At PARAMS_128 the route is the one measured faster at each batch of the
     card's sweep (K5 up to 198 and on the short last waves, K3/K4 else), and a
     stage costs more than at PARAMS_110."""
@@ -127,10 +136,10 @@ def test_routing_at_params_128_follows_its_sweep():
     assert all(bs.small_batch(B, P) for B in k5)
     assert not any(bs.small_batch(B, P) for B in k3)
     for B in (1, 30, 31, 256, 2048):
-        assert bs.stage_ms(B, 30, P) > bs.stage_ms(B, 30, pt.PARAMS_110)
+        assert bs.stage_ms(B, P, card30) > bs.stage_ms(B, pt.PARAMS_110, card30)
     # the adders' arm is priced at the keys' set
-    assert config.lookahead_enabled(1, 16, "cuda", 30, P) is True
-    assert config.lookahead_enabled(64, 16, "cuda", 30, P) is False
+    assert arith._latency_policy(1, 16, card30, SimpleNamespace(params=P)) is True
+    assert arith._latency_policy(64, 16, card30, SimpleNamespace(params=P)) is False
     assert sorted(bs.WAVES) == sorted(cmux.CMUX_FORMS) == [2, 3]
 
 

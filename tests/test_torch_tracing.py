@@ -206,9 +206,12 @@ def test_circuit_span_names_the_adders_arm(monkeypatch):
     cloud = SimpleNamespace(params=pt.PARAMS_TOY)
 
     @arith.circuit
-    def adds(x, cloud, numbers=(1,)):
+    def adds(x, cloud, numbers=(1,), forced=()):
         for m in numbers:
             arith._latency_policy(m, 16, x.device, cloud)
+        for arm in forced:
+            with config.overrides(TFHE_TPU_LOOKAHEAD=arm):
+                arith._latency_policy(1, 16, x.device, cloud)
         return LweCiphertext(x.a + 1, x.b, x.cv)
 
     x = _ct(3)
@@ -223,10 +226,9 @@ def test_circuit_span_names_the_adders_arm(monkeypatch):
         ("first", "ripple"), ("eager", "ripple"), ("capture", "ripple"), ("replay", "ripple"),
         ("replay", "ripple"), ("first", "prefix"), ("off", None)]
 
-    monkeypatch.setattr(config, "lookahead_enabled", lambda numbers, *_: numbers == 1)
     profiling.reset_spans()
     with profile():
-        adds(x, cloud, numbers=(1, 64))
+        adds(x, cloud, numbers=(), forced=("1", "0"))
     (call,) = [r.attrs for r in profiling.spans() if r.name == "tfhe.circuit"]
     assert call == {"circuit": adds.__qualname__, "mode": "off", "arm": "mixed"}
 

@@ -133,12 +133,9 @@ class _Recording:
         return self.out
 
     def replay(self):
-        saved = dict(cmux.FORM_SAMPLES), dict(cmux.LAUNCHES), dict(cmux.SAMPLES)
+        saved = profiling.snapshot()
         new = self.run()
-        cmux.FORM_SAMPLES.clear()
-        cmux.FORM_SAMPLES.update(saved[0])
-        cmux.LAUNCHES.update(saved[1])
-        cmux.SAMPLES.update(saved[2])
+        profiling.counts_since(saved)
         for f in ("a", "b", "cv"):
             getattr(self.out, f).copy_(getattr(new, f))
 
@@ -162,4 +159,4 @@ def test_replays_add_the_form_samples_of_their_capture(monkeypatch):
             counts.append(cmux.FORM_SAMPLES.get(("blind_rotate_ks_fused", 3, 2, 1), 0))
     assert counts == [5, 10, 15, 20]
     entry = next(iter(graphs.entries.values()))
-    assert entry.forms == {("blind_rotate_ks_fused", 3, 2, 1): 5}
+    assert entry.counted["form_samples"] == {("blind_rotate_ks_fused", 3, 2, 1): 5}

@@ -37,14 +37,13 @@ import numpy as np
 import torch
 
 from . import gates
-from .config import circuit_jit_enabled, policy_fingerprint
+from .config import circuit_jit_enabled, flag
 from .core import bootstrap as bs
 from .core.keys import CloudKey
 from .core.lwe import LweCiphertext, keeping, lwe_concat, lwe_stack, lwe_take
-from .ops import cmux, cmux_packed
 from .numeric import wrap_i32
 from .params import TfheParams
-from .utils.profiling import NO_SPAN, span
+from .utils.profiling import NO_SPAN, add_counts, counter, counts_since, snapshot, span
 
 _1_8 = gates._1_8
 
@@ -113,10 +112,8 @@ GRAPH_MAX = 32
 
 _INSIDE = threading.local()      # depth of decorated calls on this thread
 
-# The adder family's decisions by arm (``_latency_policy``), counted as
-# ``cmux.LAUNCHES`` counts launches: a captured circuit adds the decisions of
-# its capture on each replay.
-ADDER_ARMS = {"prefix": 0, "ripple": 0}
+# The adder family's decisions by arm (``_latency_policy``), a registered counter.
+ADDER_ARMS = counter("adder_arms", ("prefix", "ripple"))
 
 
 class CudaGraph:
@@ -173,21 +170,17 @@ def _clone(out):
 class _Entry:
     """A key's state: called `calls` times eagerly (graph None; its identity
     arguments held weakly), or captured (the graph, its static inputs and
-    outputs, and the launches, samples by form, adder decisions and paired
-    key switches (``bs.PAIR_KS``) each replay makes). `held`
-    maps the cache keys of the plans its eager calls and its capture read to
-    the tensors (``core/lwe.keeping``)."""
+    outputs, and what the registered counters of ``utils.profiling`` counted
+    during the capture, which each replay adds: `counted`). `held` maps the
+    cache keys of the plans its eager calls and its capture read to the
+    tensors (``core/lwe.keeping``)."""
     refs: tuple
     held: dict
     calls: int = 0
     graph: object = None
     inputs: list = None
     out: object = None
-    launches: dict = None
-    samples: dict = None
-    arms: dict = None
-    forms: dict = None
-    pairs: dict = None
+    counted: dict = None
 
 
 class CircuitGraphs:
@@ -280,8 +273,7 @@ class CircuitGraphs:
                   if isinstance(a, LweCiphertext) else None for a in args]
         static = [s if s is not None else a for s, a in zip(inputs, args)]
         graph = self.graph(device)
-        launches, samples, arms = dict(cmux.LAUNCHES), dict(cmux.SAMPLES), dict(ADDER_ARMS)
-        forms, pairs = dict(cmux.FORM_SAMPLES), dict(bs.PAIR_KS)
+        before = snapshot()
         try:
             with span("tfhe.circuit.capture"), keeping(warm.held):
                 out = graph.capture(lambda: f(*static))
@@ -289,22 +281,9 @@ class CircuitGraphs:
             del self.entries[key]             # the next call is a first call: eager, a warm-up
             raise
         finally:
-            # the capture ran nothing: what the wrappers counted, each replay launches
-            d_launches = {k: cmux.LAUNCHES[k] - v for k, v in launches.items()}
-            d_samples = {k: cmux.SAMPLES[k] - v for k, v in samples.items()}
-            d_arms = {k: ADDER_ARMS[k] - v for k, v in arms.items()}
-            d_forms = {k: v - forms.get(k, 0) for k, v in cmux.FORM_SAMPLES.items()
-                       if v != forms.get(k, 0)}
-            d_pairs = {k: bs.PAIR_KS[k] - v for k, v in pairs.items()}
-            cmux.LAUNCHES.update(launches)
-            cmux.SAMPLES.update(samples)
-            ADDER_ARMS.update(arms)
-            bs.PAIR_KS.update(pairs)
-            cmux.FORM_SAMPLES.clear()
-            cmux.FORM_SAMPLES.update(forms)
+            counted = counts_since(before)    # the capture ran nothing: each replay counts this
         _check_outputs(out)
-        entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, d_launches, d_samples,
-                       d_arms, d_forms, d_pairs)
+        entry = _Entry(refs, warm.held, warm.calls, graph, inputs, out, counted)
         self._remember(key, entry)
         return entry
 
@@ -316,15 +295,7 @@ class CircuitGraphs:
                 s.cv.copy_(a.cv)
         with span("tfhe.circuit.launch"):
             entry.graph.replay()
-        for k, v in entry.launches.items():
-            cmux.LAUNCHES[k] += v
-            cmux.SAMPLES[k] += entry.samples[k]
-        for k, v in entry.arms.items():
-            ADDER_ARMS[k] += v
-        for k, v in entry.forms.items():
-            cmux.FORM_SAMPLES[k] = cmux.FORM_SAMPLES.get(k, 0) + v
-        for k, v in entry.pairs.items():
-            bs.PAIR_KS[k] += v
+        add_counts(entry.counted)
         return _clone(entry.out)
 
 
@@ -334,9 +305,9 @@ GRAPHS = CircuitGraphs()
 
 def circuit_key(f, args: tuple, static_argnums, device: torch.device):
     """The key of a call of circuit f, and the arguments it names by identity:
-    f; the policy fingerprint (``config.policy_fingerprint``, with the batch
-    cap of the cloud key on `device`); the device, shape and dtype of every
-    tensor of each ciphertext argument; the value of each argument at
+    f; the policy (the circuit flags and ``bs.route_fingerprint``, with the
+    batch cap of the cloud key on `device`); the device, shape and dtype of
+    every tensor of each ciphertext argument; the value of each argument at
     `static_argnums`; every other argument (the cloud key) by identity."""
     parts, by_id, cloud = [], [], None
     for i, a in enumerate(args):
@@ -352,7 +323,9 @@ def circuit_key(f, args: tuple, static_argnums, device: torch.device):
             by_id.append(a)
             if isinstance(a, CloudKey):
                 cloud = a
-    return (f, policy_fingerprint(device, cloud), tuple(parts)), by_id
+    policy = (flag("TFHE_TPU_LOOKAHEAD"), flag("TFHE_TPU_SEPTET"), flag("TFHE_TPU_FUSEKS"),
+              flag("TFHE_TPU_NOISE_MODEL", "average")) + bs.route_fingerprint(device, cloud)
+    return (f, policy, tuple(parts)), by_id
 
 
 def _graph_device(args: tuple):
@@ -425,20 +398,46 @@ def circuit(fn=None, *, static_argnums=()):
 
 # --------------------------------------------------------------- adders
 
+def adder_stages(numbers: int, nbits: int) -> tuple:
+    """The flat batch of each dependent bootstrap of an nbits add of
+    `numbers` independent integers, in each arm: ripple (``add``), one full
+    adder (two images a number) a bit; prefix (``add_fast``), the (g, p) pair
+    over every bit, a Kogge-Stone level of three images a combined bit for
+    each distance 1, 2, 4, ... under nbits, and the XOR of the sums."""
+    ripple = [2 * numbers] * nbits
+    prefix = [2 * nbits * numbers]
+    d = 1
+    while d < nbits:
+        prefix.append(3 * (nbits - d) * numbers)
+        d *= 2
+    prefix.append((nbits - 1) * numbers)
+    return ripple, [b for b in prefix if b]
+
+
 def _latency_policy(numbers: int, nbits: int, device, cloud) -> bool:
-    """The adder family's arm (``config.lookahead_enabled``): True for the
-    parallel-prefix circuits, False for the ripple ones, for `numbers`
-    independent nbits integers on `device`. On the card a stage costs the
-    same from 1 to 30 samples, so the prefix arm's fewer, wider stages win
-    for a few numbers and ripple's narrow ones for many; on the CPU ripple,
-    as ``tfhe_tpu``. Each decision adds one to ``ADDER_ARMS``."""
-    from .config import lookahead_enabled
-    device = torch.device(device)
-    in_flight = 0
-    if device.type == "cuda" and cloud.params.N <= cmux_packed.N_MAX:
-        index = device.index if device.index is not None else torch.cuda.current_device()
-        in_flight = cmux_packed.samples_in_flight(cloud.params.N, 4, index, cloud.params.bk_l)
-    prefix = lookahead_enabled(numbers, nbits, device, in_flight, cloud.params)
+    """The adder family's arm for `numbers` independent nbits integers on
+    `device` under `cloud`'s set: True for the parallel-prefix circuits, False
+    for ripple. TFHE_TPU_LOOKAHEAD=0/1 forces either. Auto: ripple on the CPU,
+    as ``tfhe_tpu`` (the CPU route stays byte-equal to it); on CUDA the arm
+    whose stages (``adder_stages``) cost less by ``core.bootstrap.stage_ms``.
+    Each decision adds one to ``ADDER_ARMS``.
+
+    Why by the card's cost: on the H100 a bootstrap costs by dependent stage,
+    not by sample (``core.bootstrap.WAVES``: ~1.9 ms a stage from 1 to 30
+    samples), so a one-number add16 pays 16 ripple stages (~31 ms) where
+    prefix pays 6; at 32 or 64 numbers prefix's first stages run as K3/K4
+    waves of ~6.2 ms and ripple wins. On a TPU a small batch's cost grew with
+    its samples (div16 0.83 s with ripple, 3.10 s with prefix rounds), so
+    ``tfhe_tpu`` keeps ripple everywhere."""
+    v, device = flag("TFHE_TPU_LOOKAHEAD"), torch.device(device)
+    if v in ("0", "1"):
+        prefix = v == "1"
+    elif device.type != "cuda":
+        prefix = False
+    else:
+        ripple, fast = adder_stages(numbers, nbits)
+        prefix = (sum(bs.stage_ms(b, cloud.params, device) for b in fast)
+                  < sum(bs.stage_ms(b, cloud.params, device) for b in ripple))
     ADDER_ARMS["prefix" if prefix else "ripple"] += 1
     return prefix
 

@@ -42,7 +42,7 @@ from .. import ntt
 from ..config import fuseks_enabled
 from ..numeric import i32, mod_switch_from_torus32
 from ..ops import cmux, cmux_packed
-from ..utils.profiling import span, spanned
+from ..utils.profiling import counter, span, spanned
 from .lwe import LweCiphertext
 
 @dataclass(frozen=True)
@@ -131,17 +131,30 @@ def small_batch(B: int, params: TfheParams) -> bool:
     return B <= waves(params).small_batch_max and k5_ms(B, params) <= k3_ms(B, params)
 
 
-def stage_ms(B: int, in_flight: int, params: TfheParams) -> float:
+def card_index(device: torch.device) -> int:
+    """The index of the card `device` names, the current card where it names none."""
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def in_flight(device: torch.device, params: TfheParams) -> int:
+    """The samples the card holds at once in K5's clusters of four
+    (``cmux_packed.samples_in_flight``); 0 off the card or where K5 cannot run."""
+    if device.type != "cuda" or params.N > cmux_packed.N_MAX:
+        return 0
+    return cmux_packed.samples_in_flight(params.N, 4, card_index(device), params.bk_l)
+
+
+def stage_ms(B: int, params: TfheParams, device) -> float:
     """The estimated time of one bootstrap of a flat batch of B of `params`
-    on the card, by the route it takes: K5 in clusters of four up to
-    `in_flight` samples (``cmux_packed.samples_in_flight(N, 4, card, l)``, 0
-    where K5 cannot run), else the blind rotate ``small_batch`` picks; then
+    on the card `device`, by the route it takes: K5 in clusters of four up to
+    ``in_flight`` samples, else the blind rotate ``small_batch`` picks; then
     the key switch and glue."""
     w = waves(params)
-    if B <= in_flight:
+    held = in_flight(torch.device(device), params)
+    if B <= held:
         rotate = w.k5_c4_ms
     else:
-        rotate = k5_ms(B, params) if in_flight and small_batch(B, params) else k3_ms(B, params)
+        rotate = k5_ms(B, params) if held and small_batch(B, params) else k3_ms(B, params)
     return rotate + w.stage_glue_ms
 
 
@@ -379,8 +392,17 @@ def batch_cap(device: torch.device, cloud) -> int:
     keys = (cloud.bk_ntt, cloud.bk_ntt_shoup, cloud.bk_rows, cloud.bk_rows_shoup,
             cloud.ks_table, cloud.ks_table_perm)
     key_bytes = sum(t.numel() * t.element_size() for t in keys)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return _card_cap(index, key_bytes, cloud.params.N)
+    return _card_cap(card_index(device), key_bytes, cloud.params.N)
+
+
+def route_fingerprint(device: torch.device, cloud) -> tuple:
+    """The routing values a bootstrap reads at call time (``ops.cmux``'s arms
+    and forms, ``WAVES``) and, with a cloud key, the batch cap on `device`:
+    part of the key of a captured circuit (``arith.circuit_key``), so that a
+    graph is never replayed under another route than its capture's."""
+    cap = None if cloud is None else batch_cap(torch.device(device), cloud)
+    return (cmux.KS_GATHER_MAX, cmux.KS_GATHER_BLOCKS, cmux.KS_GATHER_MIN_COEFFS,
+            cmux.KS_MMA_BLOCKS, tuple(cmux.CMUX_FORMS.items()), tuple(WAVES.items()), cap)
 
 
 def _chunked(impl, x: LweCiphertext, mu, cloud, woks: bool = False, pairs: int = 0):
@@ -478,13 +500,8 @@ def _bootstrap_fused_ks(x: LweCiphertext, mu, cloud, pairs: int = 0,
 # The paired bootstraps (``bootstrap_paired``) by route: "kernel", the
 # key-switch kernels sum the pairs (the fused route), and "split", the sum of
 # extracted samples goes through ``key_switch``. Counted where each route
-# runs; a captured circuit adds its capture's counts on each replay
-# (``arith.CircuitGraphs``), and ``reset_pair_ks`` clears them.
-PAIR_KS = {"kernel": 0, "split": 0}
-
-
-def reset_pair_ks() -> None:
-    PAIR_KS.update(dict.fromkeys(PAIR_KS, 0))
+# runs (a counter of ``utils.profiling``: replays carry it).
+PAIR_KS = counter("pair_ks", ("kernel", "split"))
 
 
 def bootstrap(x: LweCiphertext, mu, cloud) -> LweCiphertext:

@@ -46,7 +46,8 @@ wrapper's path copies from the host or reads back from the card, so a CUDA
 graph captures a whole circuit of them (``arith.circuit``): the first call
 loads the library, raises the kernels' shared-memory limits and reads the
 card's occupancy, all before the capture, and the graph replays the launches
-that ``LAUNCHES`` and ``SAMPLES`` counted while it was captured.
+that ``LAUNCHES`` and ``SAMPLES`` (``utils.profiling.counter``) counted while
+it was captured.
 """
 from __future__ import annotations
 
@@ -58,22 +59,22 @@ import torch
 from .. import ntt
 from ..params import TfheParams
 from ..core import bootstrap as bs
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 from ._build import check, library
 
 # one count per TPU kernel replaced, and one for the key-switch kernel, which
 # every wrapper that launches it raises; blind_rotate_fused_packed (K5) is
 # launched by the wrappers of ops/cmux_packed.py
-LAUNCHES = {"cmux_delta": 0, "blind_rotate_step": 0, "blind_rotate_fused": 0,
-            "blind_rotate_ks_fused": 0, "blind_rotate_fused_packed": 0, "keyswitch": 0}
+LAUNCHES = counter("launches", ("cmux_delta", "blind_rotate_step", "blind_rotate_fused",
+                               "blind_rotate_ks_fused", "blind_rotate_fused_packed", "keyswitch"))
 # the samples those launches held: what each route of a circuit took, whose
 # stages walk through every batch size (core.bootstrap.small_batch)
-SAMPLES = dict.fromkeys(LAUNCHES, 0)
+SAMPLES = counter("samples", LAUNCHES)
 # the samples of each blind-rotate launch by its form: (name, l, S, nbuf) ->
 # samples, S the samples a block holds, which share each read of a key slice,
 # and nbuf its key buffers in shared memory (K5: S = 1, nbuf 2 in clusters of
 # four, whose CTAs stage the key rows, 0 in clusters of two)
-FORM_SAMPLES: dict = {}
+FORM_SAMPLES = counter("form_samples")
 
 # Largest batch whose key switch takes the gather arm; a larger one takes the
 # tensor-core arm. Measured on an H100 (700 W) at PARAMS_110 by chip_smoke.py:

@@ -63,8 +63,7 @@ def small_cluster(B: int, N: int, device: torch.device, l: int) -> int:
     fastest per sample and serves the batches the card takes in one wave of
     such clusters (30 samples on an H100 at N = 1024); a cluster of 2 (one
     prime each, two CTAs an SM, 132 samples at once) every larger batch."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return 4 if B <= samples_in_flight(N, 4, index, l) else 2
+    return 4 if B <= samples_in_flight(N, 4, bs.card_index(device), l) else 2
 
 
 def _check_bk_ntt(bk: torch.Tensor, bksh: torch.Tensor, n: int, params: TfheParams) -> None:

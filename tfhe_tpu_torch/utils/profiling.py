@@ -25,6 +25,12 @@ children's time. ``spans()`` returns the store as ``SpanRecord``s,
 store keeps the first ``SPAN_CAP`` = 100,000 spans to close (some 25 MB; a
 30-second traced window of 256-gate calls holds about 25,000); past it,
 spans are counted and not kept.
+
+``counter(name, keys)`` declares a counter where its events are counted: a
+dict, registered here. A captured circuit runs none of the code that counts,
+so ``arith.CircuitGraphs`` keeps what every registered counter counted during
+its capture (``snapshot``, ``counts_since``) and adds it on each replay
+(``add_counts``); ``reset_counters()`` zeroes them all.
 """
 from __future__ import annotations
 
@@ -253,3 +259,47 @@ def reset_spans() -> None:
     with _LOCK:
         _STORE.clear()
         _COUNTS.clear()
+
+
+# ------------------------------------------------------------------ counters
+
+_COUNTERS: dict = {}            # name -> (the live dict, its keys at zero)
+
+
+def counter(name: str, keys=()) -> dict:
+    """A registered counter: a dict of counts by key, `keys` at 0 from the start."""
+    live = dict.fromkeys(keys, 0)
+    _COUNTERS[name] = (live, tuple(keys))
+    return live
+
+
+def snapshot() -> dict:
+    """Every registered counter's counts, by name."""
+    return {name: dict(live) for name, (live, _) in _COUNTERS.items()}
+
+
+def counts_since(snap: dict) -> dict:
+    """What each counter counted since `snap` ({name: {key: count}}, the keys
+    that moved); every counter is put back as it was at `snap`."""
+    moved = {}
+    for name, (live, keys) in _COUNTERS.items():
+        was = snap.get(name, dict.fromkeys(keys, 0))
+        moved[name] = {k: v - was.get(k, 0) for k, v in live.items() if v != was.get(k, 0)}
+        live.clear()
+        live.update(was)
+    return moved
+
+
+def add_counts(moved: dict) -> None:
+    """Adds counts_since's result to the registered counters."""
+    for name, d in moved.items():
+        live = _COUNTERS[name][0]
+        for k, v in d.items():
+            live[k] = live.get(k, 0) + v
+
+
+def reset_counters() -> None:
+    """Every registered counter back to its keys at 0."""
+    for live, keys in _COUNTERS.values():
+        live.clear()
+        live.update(dict.fromkeys(keys, 0))
