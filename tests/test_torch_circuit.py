@@ -175,7 +175,7 @@ def card(monkeypatch):
 
 @pytest.mark.parametrize("numbers,nbits,prefix", [
     (1, 16, True), (2, 16, True), (4, 16, True), (1, 32, True), (1, 8, True),
-    (5, 16, False), (32, 16, False), (64, 16, False), (1, 4, False)])
+    (5, 16, True), (7, 16, False), (32, 16, False), (64, 16, False), (1, 4, False)])
 def test_adder_arm_by_the_cards_cost(monkeypatch, card, numbers, nbits, prefix):
     """On CUDA the arm whose stages cost less on the card: prefix for a few
     numbers, ripple for many (and where the stage counts tie, as at 4 bits);

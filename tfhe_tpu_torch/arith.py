@@ -114,6 +114,8 @@ _INSIDE = threading.local()      # depth of decorated calls on this thread
 
 # The adder family's decisions by arm (``_latency_policy``), a registered counter.
 ADDER_ARMS = counter("adder_arms", ("prefix", "ripple"))
+# The prefix arm's carry chains by network (``_prefix_carry_chain``), a registered counter.
+PREFIX_NETWORKS = counter("prefix_networks", ("kogge_stone", "sklansky"))
 
 
 class CudaGraph:
@@ -398,13 +400,23 @@ def circuit(fn=None, *, static_argnums=()):
 
 # --------------------------------------------------------------- adders
 
-def adder_stages(numbers: int, nbits: int) -> tuple:
+def adder_stages(numbers: int, nbits: int, network: str = "kogge_stone") -> tuple:
     """The flat batch of each dependent bootstrap of an nbits add of
     `numbers` independent integers, in each arm: ripple (``add``), one full
-    adder (two images a number) a bit; prefix (``add_fast``), the (g, p) pair
-    over every bit, a Kogge-Stone level of three images a combined bit for
-    each distance 1, 2, 4, ... under nbits, and the XOR of the sums."""
+    adder (two images a number) a bit; prefix (``add_fast``) on `network`.
+    Kogge-Stone: the (g, p) pair over every bit, a level of three images a
+    combined bit for each distance 1, 2, 4, ... under nbits, and the XOR of
+    the sums. Sklansky: the (g, p) pair over bits 0..nbits-2, a level of
+    three images a combine for each block size of ``_sklansky_levels`` (two
+    at the last, which needs no p'), and the sums with the top bit's XOR3."""
     ripple = [2 * numbers] * nbits
+    if network == "sklansky" and nbits > 1:
+        levels = _sklansky_levels(nbits - 1)
+        prefix = [2 * (nbits - 1) * numbers]
+        prefix += [(2 if k == len(levels) - 1 else 3) * len(hi) * numbers
+                   for k, (hi, _) in enumerate(levels)]
+        prefix.append((nbits - 1) * numbers)
+        return ripple, prefix
     prefix = [2 * nbits * numbers]
     d = 1
     while d < nbits:
@@ -419,8 +431,9 @@ def _latency_policy(numbers: int, nbits: int, device, cloud) -> bool:
     `device` under `cloud`'s set: True for the parallel-prefix circuits, False
     for ripple. TFHE_TPU_LOOKAHEAD=0/1 forces either. Auto: ripple on the CPU,
     as ``tfhe_tpu`` (the CPU route stays byte-equal to it); on CUDA the arm
-    whose stages (``adder_stages``) cost less by ``core.bootstrap.stage_ms``.
-    Each decision adds one to ``ADDER_ARMS``.
+    whose stages (``adder_stages`` on the network ``_prefix_network`` picks)
+    cost less by ``core.bootstrap.stage_ms``. Each decision adds one to
+    ``ADDER_ARMS``.
 
     Why by the card's cost: on the H100 a bootstrap costs by dependent stage,
     not by sample (``core.bootstrap.WAVES``: ~1.9 ms a stage from 1 to 30
@@ -435,11 +448,25 @@ def _latency_policy(numbers: int, nbits: int, device, cloud) -> bool:
     elif device.type != "cuda":
         prefix = False
     else:
-        ripple, fast = adder_stages(numbers, nbits)
+        ripple, fast = adder_stages(numbers, nbits, _prefix_network(device))
         prefix = (sum(bs.stage_ms(b, cloud.params, device) for b in fast)
                   < sum(bs.stage_ms(b, cloud.params, device) for b in ripple))
     ADDER_ARMS["prefix" if prefix else "ripple"] += 1
     return prefix
+
+
+def _prefix_network(device) -> str:
+    """The carry network of the prefix arm's adders (``add_fast``, ``sub``)
+    on `device`. Where the card's cost picks the arm (CUDA, TFHE_TPU_LOOKAHEAD
+    unset) Sklansky over the nbits - 1 carries the sum reads: its levels are
+    at most half as wide as Kogge-Stone's at the same depth, so a one-number
+    16-bit add sends no stage over 30 samples, which K5 holds at once in its
+    clusters of four (PERF.md, section 6). Where TFHE_TPU_LOOKAHEAD=1 forces the
+    arm, and on the CPU, Kogge-Stone over every bit, ``tfhe_tpu``'s prefix
+    arm. Flag and device are both in a captured circuit's key."""
+    if flag("TFHE_TPU_LOOKAHEAD") in ("0", "1") or torch.device(device).type != "cuda":
+        return "kogge_stone"
+    return "sklansky"
 
 
 def _latency_bound(a: LweCiphertext, cloud) -> bool:
@@ -453,7 +480,7 @@ def add(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     main.cu:821-890) on the 2-bootstrap full adder: per bit one batched
     bootstrap (sum and carry images) and one key switch. The result has the
     same nbits (overflow dropped, as in the reference). With the prefix arm
-    on, the Kogge-Stone adder (add_fast)."""
+    on, the parallel-prefix adder (add_fast)."""
     if _latency_bound(a, cloud):
         return add_fast(a, b, cloud)
     nbits = a.batch_shape[-1]
@@ -469,10 +496,21 @@ def add(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
 
 @circuit
 def add_fast(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
-    """Kogge-Stone parallel-prefix adder: log2(nbits)+2 batched stages
-    instead of nbits dependent full-adder stages. Stage 0 computes
-    (g, p) = (AND, XOR) in one compound bootstrap, each prefix level is one
-    gates.prefix_combine, and the final sums are one XOR batch."""
+    """Parallel-prefix adder: log2(nbits)+2 batched stages instead of nbits
+    dependent full-adder stages. Stage 0 computes (g, p) = (AND, XOR) in one
+    compound bootstrap, each prefix level is one gates.prefix_combine, and
+    the final sums are one XOR batch. On the network ``_prefix_network``
+    picks: Kogge-Stone over every bit, or Sklansky over bits 0..nbits-2,
+    whose top sum bit is XOR3(a, b, carry) in the sums' batch (the carry out
+    of the top bit is dropped, so its (g, p) is never read)."""
+    nbits = a.batch_shape[-1]
+    if nbits > 1 and _prefix_network(a.device) == "sklansky":
+        m = nbits - 1
+        g, p = gates.gate2_pair("AND", "XOR", a[..., :m], b[..., :m], a[..., :m], b[..., :m],
+                                cloud)
+        c = _prefix_carry_chain(g, p, cloud, "sklansky")
+        return lwe_concat([p[..., :1], _prefix_sums(p, c, a[..., m:], b[..., m:], cloud)],
+                          axis=-1)
     g, p = gates.gate2_pair("AND", "XOR", a, b, a, b, cloud)
     c = _prefix_carry_chain(g, p, cloud)
     # c_i is the carry OUT of bit i: sum_0 = p_0, sum_i = p_i ^ c_{i-1}
@@ -480,10 +518,33 @@ def add_fast(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     return lwe_concat([p[..., :1], s_rest], axis=-1)
 
 
-def _prefix_carry_chain(g: LweCiphertext, p: LweCiphertext, cloud) -> LweCiphertext:
-    """Kogge-Stone all-prefix carries: c_i = carry out of bit i given the
-    per-bit (generate, propagate). log2(nbits) fused levels."""
+def _prefix_carry_chain(g: LweCiphertext, p: LweCiphertext, cloud,
+                        network: str = "kogge_stone") -> LweCiphertext:
+    """All-prefix carries: c_i = carry out of bit i given the per-bit
+    (generate, propagate), one fused gates.prefix_combine a level. Kogge-Stone:
+    log2(nbits) levels of nbits - d combines at distance d. Sklansky: as many
+    levels, each of at most nbits/2 combines (``_sklansky_levels``); the last
+    reads no p', so it is a MUX. Each chain adds one to ``PREFIX_NETWORKS``."""
+    PREFIX_NETWORKS[network] += 1
     nbits = g.batch_shape[-1]
+    if network == "sklansky":
+        levels = _sklansky_levels(nbits)
+        if not levels:
+            return g
+        gp = lwe_concat([g, p], axis=-1)               # [..., g_0..g_m-1, p_0..p_m-1]
+        for hi, lo in levels[:-1]:
+            n = hi.size
+            x = lwe_take(gp, np.concatenate([hi, lo, nbits + hi, nbits + lo]))
+            g_new, p_new = gates.prefix_combine(x[..., :n], x[..., n:2 * n], x[..., 2 * n:3 * n],
+                                                x[..., 3 * n:], cloud)
+            put = np.arange(2 * nbits)
+            put[np.concatenate([hi, nbits + hi])] = 2 * nbits + np.arange(2 * n)
+            gp = lwe_take(lwe_concat([gp, g_new, p_new], axis=-1), put)
+        hi, lo = levels[-1]                            # the upper half [hi[0], nbits), contiguous
+        n = hi.size
+        x = lwe_take(gp, np.concatenate([hi, lo, nbits + hi]))
+        g_top = gates.MUX(x[..., 2 * n:], x[..., n:2 * n], x[..., :n], cloud)
+        return lwe_concat([gp[..., :hi[0]], g_top], axis=-1)
     d = 1
     while d < nbits:
         g_new, p_new = gates.prefix_combine(
@@ -492,6 +553,38 @@ def _prefix_carry_chain(g: LweCiphertext, p: LweCiphertext, cloud) -> LweCiphert
         p = lwe_concat([p[..., :d], p_new], axis=-1)
         d *= 2
     return g
+
+
+@functools.lru_cache(maxsize=None)
+def _sklansky_levels(m: int) -> tuple:
+    """The levels of a Sklansky prefix network over m positions: at the level
+    of half-block h = 1, 2, 4, ... under m, each position in the upper half of
+    a block of 2h combines with the top of the block's lower half, which by
+    then holds the prefix from the block's start. (hi, lo) index arrays a
+    level, read-only: every caller shares them."""
+    levels, h = [], 1
+    while h < m:
+        hi = np.array([i for i in range(m) if (i // h) % 2], np.int64)
+        lo = (hi // h) * h - 1
+        hi.setflags(write=False)
+        lo.setflags(write=False)
+        levels.append((hi, lo))
+        h *= 2
+    return tuple(levels)
+
+
+def _prefix_sums(p: LweCiphertext, c: LweCiphertext, a_top: LweCiphertext,
+                 b_top: LweCiphertext, cloud) -> LweCiphertext:
+    """Sum bits 1..nbits-1 of a Sklansky add from (g, p) and carries over bits
+    0..nbits-2, in one bootstrap batch: s_i = p_i XOR c_{i-1} below the top,
+    and s_top = XOR3(a_top, b_top, c_top-1), whose NOT rides the batch as a
+    negative amplitude. `a_top`, `b_top`: the top bit of each operand, [..., 1]."""
+    m = c.batch_shape[-1]
+    lead = c.batch_shape[:-1]
+    t = lwe_concat([gates._affine2(p[..., 1:], c[..., :-1], *gates.GATE_TABLE["XOR"]),
+                    gates._affine3(a_top, b_top, c[..., m - 1:], 0, 2, 2, 2)], axis=-1)
+    mu = np.tile(np.r_[np.full(m - 1, gates.MU), -gates.MU].astype(np.int32), _numel(lead))
+    return gates.bootstrap_images(t.reshape((mu.size,)), mu, cloud).reshape(lead + (m,))
 
 
 def _cmp_carry_tree(g: LweCiphertext, p: LweCiphertext, cloud) -> LweCiphertext:
@@ -564,9 +657,23 @@ def twos_complement(a: LweCiphertext, cloud) -> LweCiphertext:
 def sub(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     """a - b = a + not(b) + 1: the complement folds into the ripple chain's
     carry-in (the NOT is a free negation). The prefix arm uses
-    (g, p) = (a & ~b, a xnor b) with the carry-in folded into g_0 (a | ~b)."""
+    (g, p) = (a & ~b, a xnor b) with the carry-in folded into g_0 (a | ~b);
+    on Sklansky (``_prefix_network``) g_0 rides the (g, p) batch over bits
+    0..nbits-2, and the top sum bit is XOR3(a, ~b, carry) in the sums' batch."""
     nbits = a.batch_shape[-1]
     if _latency_bound(a, cloud):
+        if nbits > 1 and _prefix_network(a.device) == "sklansky":
+            m, lead = nbits - 1, a.batch_shape[:-1]
+            t = lwe_concat([gates._affine2(a[..., :1], b[..., :1], *gates.GATE_TABLE["ORYN"]),
+                            gates._affine2(a[..., 1:m], b[..., 1:m], *gates.GATE_TABLE["ANDYN"]),
+                            gates._affine2(a[..., :m], b[..., :m], *gates.GATE_TABLE["XNOR"])],
+                           axis=-1)
+            gp = bs.bootstrap(t.reshape((_numel(lead) * 2 * m,)), gates.MU, cloud)
+            gp = gp.reshape(lead + (2 * m,))
+            g, p = gp[..., :m], gp[..., m:]
+            c = _prefix_carry_chain(g, p, cloud, "sklansky")
+            s_rest = _prefix_sums(p, c, a[..., m:], gates.NOT(b[..., m:]), cloud)
+            return lwe_concat([gates.NOT(p[..., :1]), s_rest], axis=-1)
         g, p = gates.gate2_pair("ANDYN", "XNOR", a, b, a, b, cloud)
         g0 = gates.ORYN(a[..., :1], b[..., :1], cloud)     # carry-in = 1
         c = _prefix_carry_chain(lwe_concat([g0, g[..., 1:]], axis=-1), p, cloud)
