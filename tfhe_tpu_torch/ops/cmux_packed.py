@@ -12,7 +12,8 @@ of the key-switch kernel behind it one to ``cmux.LAUNCHES["keyswitch"]``, and
 its batch to the same names of ``cmux.SAMPLES`` (``cmux.count_launch``) and
 to ``cmux.FORM_SAMPLES`` under (name, l, 1, 2) in clusters of four (one
 sample, its key rows staged in a double buffer) or (name, l, 1, 0) in
-clusters of two; the host part of a wrapper on CUDA is the span
+clusters of two, and to ``CLUSTERS`` under "c4" or "c2" (launches, not
+samples); the host part of a wrapper on CUDA is the span
 ``tfhe.kernel.<wrapper>``, with the batch, the gadget length ``l`` (2 or 3)
 and the ``form`` "c4" or "c2".
 
@@ -33,7 +34,7 @@ import torch
 from .. import ntt
 from ..params import TfheParams
 from ..core import bootstrap as bs
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 from ._build import check, library
 from .cmux import (_acc_rows, _check_batch, _check_params, _check_tks, _expect, _kernel_tables,
                    _ks_buffers, _on_cuda, _stream, count_launch, keyswitch_plan, keyswitch_ref,
@@ -41,6 +42,9 @@ from .cmux import (_acc_rows, _check_batch, _check_params, _check_tks, _expect, 
 
 # the FORM_SAMPLES form (S, nbuf) of each cluster size
 CLUSTER_FORMS = {4: (1, 2), 2: (1, 0)}
+
+# K5 launches (stages, not samples) by CTAs a sample, "c4" or "c2"
+CLUSTERS = counter("k5_clusters", ("c4", "c2"))
 
 LANE = 128
 N_MAX = 1024    # the kernel's rows, and two steps' key rows, have to fit in shared memory
@@ -124,12 +128,13 @@ def blind_rotate_fused_packed(acc_p: torch.Tensor, bara: torch.Tensor, bk_ntt: t
                               bk_ntt_shoup, params, sp=sp)
 
 
-def _spanned_form(sp, params: TfheParams, cluster: int) -> tuple:
-    """Names the form of a K5 launch on its wrapper's span `sp`; returns its
-    FORM_SAMPLES form (l, S, nbuf)."""
+def _count_k5(sp, B: int, params: TfheParams, cluster: int) -> None:
+    """Counts a K5 launch of B samples in `cluster` CTAs a sample and names
+    its form on its wrapper's span `sp`."""
     if sp:
         sp.set(l=params.bk_l, form=f"c{cluster}")
-    return (params.bk_l,) + CLUSTER_FORMS[cluster]
+    CLUSTERS[f"c{cluster}"] += 1
+    count_launch("blind_rotate_fused_packed", B, (params.bk_l,) + CLUSTER_FORMS[cluster])
 
 
 def _launch_packed(acc: torch.Tensor, bara_b: torch.Tensor, bk_ntt: torch.Tensor,
@@ -144,7 +149,7 @@ def _launch_packed(acc: torch.Tensor, bara_b: torch.Tensor, bk_ntt: torch.Tensor
         acc.data_ptr(), bara_b.data_ptr(), bk_ntt.data_ptr(), bk_ntt_shoup.data_ptr(),
         tab.data_ptr(), B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset,
         cluster, _stream(acc)))
-    count_launch("blind_rotate_fused_packed", B, _spanned_form(sp, params, cluster))
+    _count_k5(sp, B, params, cluster)
     return acc
 
 
@@ -190,6 +195,6 @@ def blind_rotate_packed_ks_fused(acc_t: torch.Tensor, bara: torch.Tensor, bk_ntt
             B, n, params.N, params.bk_l, params.bk_Bgbit, params.decomp_offset, cluster, C,
             params.ks_t, params.ks_basebit, params.ks_prec_offset, mma, split, pairs,
             b_add & 0xFFFFFFFF, _stream(acc)))
-        count_launch("blind_rotate_fused_packed", B, _spanned_form(sp, params, cluster))
+        _count_k5(sp, B, params, cluster)
         count_launch("keyswitch", out)
         return r, ext
